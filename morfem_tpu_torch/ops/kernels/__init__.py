@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+K1 `panel_factor`, K2 `mm_words` and K3 `gather_rows` replace the Pallas
+kernels of the panel LU. Each wrapper takes its plain PyTorch version for
+a CPU tensor and launches its kernel for a CUDA tensor, counting launches
+in its ``launches`` attribute.
+"""
+
+from morfem_tpu_torch.ops.kernels.fused_mm import mm_words, mm_words_plain
+from morfem_tpu_torch.ops.kernels.panel_factor import (
+    panel_factor,
+    panel_factor_plain,
+)
+from morfem_tpu_torch.ops.kernels.row_gather import (
+    gather_rows,
+    gather_rows_plain,
+)
+
+KERNELS = (panel_factor, mm_words, gather_rows)
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}

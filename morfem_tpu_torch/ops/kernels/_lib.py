@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels: one `nvcc`, one shared library.
+
+All sources in ``morfem_tpu_torch/csrc/*.cu`` are compiled by one command
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o libmorfem_kernels.so csrc/*.cu
+
+into ``morfem_tpu_torch/_build/<hash>/``, where the hash covers the
+sources and the flags, and the library is loaded with `ctypes`. Each kernel
+has an ``extern "C"`` launcher taking raw pointers, sizes and the CUDA
+stream, returning ``cudaGetLastError()``. No PyTorch headers are compiled,
+so the build takes seconds, not minutes.
+
+The build happens at first use (never at import: the CPU tests import
+every module and this machine may have no `nvcc`). It takes no lock: the
+library is written under a unique name and renamed into place, so
+concurrent builders cannot leave a half-written library behind. A failed
+build raises with `nvcc`'s output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libmorfem_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_c_void_p, _c_int, _c_int64, _c_float = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float,
+)
+# argtypes of every launcher: pointers and the stream as c_void_p (a plain
+# int would be cut to 32 bits), sizes as c_int / c_int64
+_SIGNATURES = {
+    "morfem_panel_factor": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
+    "morfem_mm_f32": [_c_void_p] * 4 + [_c_int] * 4 + [_c_int64] * 9
+    + [_c_float, _c_void_p],
+    "morfem_gather_rows": [_c_void_p] * 3 + [_c_int] * 4 + [_c_int64] * 2
+    + [_c_void_p],
+}
+
+
+class KernelLibrary:
+    """The loaded library plus what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, build_seconds: float,
+                 ptxas_log: str):
+        self.lib = lib
+        self.path = path
+        self.build_seconds = build_seconds
+        self.ptxas_log = ptxas_log
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+
+    def call(self, name: str, *args) -> None:
+        """Launch through `name`; raise if the launcher reports an error."""
+        err = getattr(self.lib, name)(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{name} failed to launch: CUDA error {err}"
+            )
+
+
+_LOADED: dict = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    h.update(nvcc.encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root:
+            cands.append(os.path.join(root, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "CUDA kernels of morfem_tpu_torch are built at first use on the "
+        "machine with the card"
+    )
+
+
+def load() -> KernelLibrary:
+    """Build (once per source hash) and load the kernel library."""
+    if "lib" in _LOADED:
+        return _LOADED["lib"]
+    nvcc = find_nvcc()
+    out_dir = BUILD_ROOT / _source_hash(nvcc)
+    lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "ptxas.log"
+    t0 = time.perf_counter()
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [nvcc] + FLAGS + ["-o", str(tmp)] + [str(p) for p in _sources()]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed to build the morfem_tpu_torch kernels:\n"
+                + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+            )
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    log = log_path.read_text() if log_path.exists() else ""
+    lib = KernelLibrary(ctypes.CDLL(str(lib_path)), lib_path, build_seconds,
+                        log)
+    _LOADED["lib"] = lib
+    return lib
+
+
+def stream_handle(t) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on t's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda_tensor(name: str, t, dtype) -> None:
+    """Raise unless `t` is a CUDA tensor of `dtype`."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")

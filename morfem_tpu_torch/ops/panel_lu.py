@@ -1,0 +1,368 @@
+"""Blocked panel LU over a batch of real systems — the full-order sweep's solver.
+
+Counterpart of `morfem_tpu/ops/panel_lu.py`, on the three hand-written
+CUDA kernels of ``ops/kernels``:
+
+  * right-looking blocked LU with partial pivoting and no row swaps; each
+    panel is factored by K1 (`panel_factor`);
+  * the pivot rows of each trailing block and the final permutation are
+    gathered by K3 (`gather_rows`);
+  * every O(N³) trailing update is one f32-true GEMM with the addend fused,
+    K2 (`mm_words`).
+
+Rows are equilibrated to unit max first, and the block-pivot factor runs
+first with a residual-checked escalation of the whole chunk to the
+full-pivot factor, exactly as in the reference, so the port factors the
+same panels and its pivot sequences match. The diagonal blocks of L and U
+are inverted once (`torch.linalg.solve_triangular`) so that both
+triangular phases of the apply are batched matmuls.
+
+The refinement residuals in `solve_sweep_panel` are plain float64
+matmuls against the three shared affine operators — one wide product
+serves every point of a chunk. The card has native f64, so the reference's
+Ozaki split has no counterpart.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
+from morfem_tpu_torch.ops.kernels import gather_rows, mm_words, panel_factor
+
+PANEL = 128
+_TRAILS = ("f32x6", "f32x3")
+
+
+def _mm_true(c, r, t=None, sign=1):
+    """f32-true c@r (+t, ×sign), output written once (kernel K2).
+
+    Both of the reference's trails map here: on the card every FP32
+    product is f32-true, so "f32x3" is no cheaper.
+    """
+    return mm_words(c, r, t, sign=sign)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def full_pivot_panel(n: int, panel: int) -> int:
+    """Effective panel width of the FULL-pivot factor.
+
+    The reference clamps wide panels back to 128 where its Pallas kernel's
+    five P×Npl f32 buffers would overflow the TPU's 16 MB VMEM. The card
+    has no such limit (K1 keeps the panel in device memory); the clamp is
+    kept for parity, so that both packages factor the same panels and pick
+    the same pivots.
+    """
+    if panel > PANEL and 5 * panel * _round_up(n, panel) * 4 > 12 << 20:
+        return PANEL
+    return panel
+
+
+def _unit_lower_inv(l: torch.Tensor) -> torch.Tensor:
+    """Inverse of batched unit-lower-triangular blocks."""
+    eye = torch.eye(l.shape[-1], dtype=l.dtype, device=l.device)
+    return torch.linalg.solve_triangular(
+        l, eye.expand_as(l), upper=False, unitriangular=True
+    )
+
+
+def _upper_inv(u: torch.Tensor) -> torch.Tensor:
+    """Inverse of batched upper-triangular blocks (non-unit diagonal)."""
+    eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
+    return torch.linalg.solve_triangular(u, eye.expand_as(u), upper=True)
+
+
+class PanelLUFactors(NamedTuple):
+    """Batched compact LU with inverted diagonal blocks (f32).
+
+    lug:  [G, Np, Np] compact LU in textbook order (rows permuted).
+    perm: [G, Np] int32 pivot order; solve with ``rhs[perm]``.
+    linv: [G, nb, P, P] inverses of the unit-lower diagonal blocks.
+    uinv: [G, nb, P, P] inverses of the upper diagonal blocks.
+    dinv: [G, Np] row-equilibration reciprocals.
+    n:    true (unpadded) dimension.
+    """
+
+    lug: torch.Tensor
+    perm: torch.Tensor
+    linv: torch.Tensor
+    uinv: torch.Tensor
+    dinv: torch.Tensor
+    n: int
+
+
+def _check_args(a: torch.Tensor, trail: str, panel: int) -> torch.Tensor:
+    if trail not in _TRAILS:
+        raise ValueError(f"trail must be 'f32x6' or 'f32x3', got {trail!r}")
+    if panel % 128:
+        raise ValueError(
+            f"panel must be a multiple of 128 (the row-gather P contract), "
+            f"got panel={panel}"
+        )
+    if a.ndim == 2:
+        a = a[None]
+    if a.shape[1] != a.shape[2]:
+        raise ValueError(f"square systems required, got {tuple(a.shape)}")
+    return a
+
+
+def _equilibrate(a: torch.Tensor, np_: int):
+    """Rows scaled to unit max, padded to Np with an identity tail."""
+    g, n, _ = a.shape
+    a32 = a.to(torch.float32)
+    d = a32.abs().amax(dim=-1)
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    a32 = a32 / d[..., None]
+    dinv = torch.ones((g, np_), dtype=torch.float32, device=a.device)
+    dinv[:, :n] = 1.0 / d
+    if np_ != n:
+        padded = torch.zeros((g, np_, np_), dtype=torch.float32,
+                             device=a.device)
+        padded[:, :n, :n] = a32
+        tail = torch.arange(n, np_, device=a.device)
+        padded[:, tail, tail] = 1.0
+        a32 = padded
+    return a32, dinv
+
+
+def panel_lu_factor(
+    a: torch.Tensor, trail: str = "f32x6", panel: int = PANEL
+) -> PanelLUFactors:
+    """Factor a batch of real square systems [G, N, N] with full pivoting.
+
+    Each step factors the leading panel of the remaining columns (K1),
+    gathers its pivot rows from the trailing block (K3), and applies one
+    rank-P update to the whole trailing block (K2). The pivot order is
+    applied once at the end with one more gather (K3).
+    """
+    a = _check_args(a, trail, panel)
+    g, n, _ = a.shape
+    panel = full_pivot_panel(n, panel)
+    np_ = _round_up(n, panel)
+    nb = np_ // panel
+    rest, dinv = _equilibrate(a, np_)
+
+    avail = torch.ones((g, np_), dtype=torch.float32, device=a.device)
+    done, pivs = [], []
+    for k in range(nb):
+        panel_t = rest[:, :, :panel].transpose(1, 2).contiguous()
+        fac_t, c_t, piv, avail = panel_factor(panel_t, avail)
+        done.append(fac_t.transpose(1, 2))
+        pivs.append(piv)
+        if k + 1 < nb:
+            tr = rest[:, :, panel:]
+            rows = gather_rows(tr, piv)  # [G, P, W]
+            rest = _mm_true(c_t.transpose(1, 2), rows, t=tr)
+
+    perm = torch.cat(pivs, dim=1)
+    lug = gather_rows(torch.cat(done, dim=2), perm)
+    diag = torch.stack(
+        [lug[:, k * panel:(k + 1) * panel, k * panel:(k + 1) * panel]
+         for k in range(nb)],
+        dim=1,
+    )  # [G, nb, P, P]
+    eye = torch.eye(panel, dtype=torch.float32, device=a.device)
+    linv = _unit_lower_inv(torch.tril(diag, -1) + eye)
+    uinv = _upper_inv(torch.triu(diag))
+    return PanelLUFactors(lug, perm, linv, uinv, dinv, n)
+
+
+def panel_lu_factor_block(
+    a: torch.Tensor, trail: str = "f32x6", panel: int = PANEL
+) -> PanelLUFactors:
+    """Blocked LU with BLOCK-LOCAL pivoting — every O(N³) FLOP is a GEMM.
+
+    Pivots only within each P-row diagonal block (K1 on [P, P] blocks):
+
+        P_k·D = L11·U11,  U12 = L11⁻¹·P_k·A12,  L21 = A21·U11⁻¹,
+        S = A22 − L21·U12                        (K2, addend fused)
+
+    Element growth is unbounded on ill-conditioned diagonal blocks, so
+    callers verify residuals and escalate to `panel_lu_factor`
+    (`solve_sweep_panel` does).
+    """
+    a = _check_args(a, trail, panel)
+    g, n, _ = a.shape
+    np_ = _round_up(n, panel)
+    nb = np_ // panel
+    rest, dinv = _equilibrate(a, np_)
+
+    eye = torch.eye(panel, dtype=torch.float32, device=a.device)
+    ones_avail = torch.ones((g, panel), dtype=torch.float32, device=a.device)
+    out = torch.zeros((g, np_, np_), dtype=torch.float32, device=a.device)
+    linvs, uinvs, pivs = [], [], []
+    for k in range(nb):
+        lo, hi = k * panel, (k + 1) * panel
+        d_t = rest[:, :panel, :panel].transpose(1, 2).contiguous()
+        fac_t, _c, piv, _av = panel_factor(d_t, ones_avail)
+        lu_d = gather_rows(fac_t.transpose(1, 2).contiguous(), piv)
+        linv = _unit_lower_inv(torch.tril(lu_d, -1) + eye)
+        uinv = _upper_inv(torch.triu(lu_d))
+        if k > 0:
+            # the local pivot reorders this band's already-written L21
+            # rows (LAPACK's laswp over the factored left part)
+            out[:, lo:hi, :lo] = gather_rows(out[:, lo:hi, :lo], piv)
+        out[:, lo:hi, lo:hi] = lu_d
+        if k + 1 < nb:
+            a12p = gather_rows(rest[:, :panel, panel:], piv)  # [G, P, W]
+            u12 = _mm_true(linv, a12p)
+            l21 = _mm_true(rest[:, panel:, :panel], uinv)  # [G, W, P]
+            rest = _mm_true(l21, u12, t=rest[:, panel:, panel:], sign=-1)
+            out[:, lo:hi, hi:] = u12
+            out[:, hi:, lo:hi] = l21
+        linvs.append(linv)
+        uinvs.append(uinv)
+        pivs.append(lo + piv)
+
+    return PanelLUFactors(
+        lug=out,
+        perm=torch.cat(pivs, dim=1),
+        linv=torch.stack(linvs, dim=1),
+        uinv=torch.stack(uinvs, dim=1),
+        dinv=dinv,
+        n=n,
+    )
+
+
+def panel_lu_apply(f: PanelLUFactors, rhs: torch.Tensor) -> torch.Tensor:
+    """Approximate A⁻¹·rhs from the f32 factors; rhs [G, N, M] any float.
+
+    Block forward and backward substitution with the inverted diagonal
+    blocks: every step is a batched FP32 matmul. Callers refine.
+    """
+    g, np_, _ = f.lug.shape
+    panel = f.linv.shape[-1]
+    nb = np_ // panel
+    n, m = rhs.shape[-2], rhs.shape[-1]
+    r32 = torch.zeros((g, np_, m), dtype=torch.float32, device=rhs.device)
+    r32[:, :n] = rhs.to(torch.float32)
+    r32 = r32 * f.dinv[..., None]  # solve (D⁻¹A)x = D⁻¹b
+    batch = torch.arange(g, device=rhs.device)[:, None]
+    y = r32[batch, f.perm.long()]
+    for k in range(nb):  # L·y = P·b, in place
+        lo, hi = k * panel, (k + 1) * panel
+        y[:, lo:hi] = f.linv[:, k] @ y[:, lo:hi]
+        if hi < np_:
+            y[:, hi:] -= f.lug[:, hi:, lo:hi] @ y[:, lo:hi]
+    x = y
+    for k in reversed(range(nb)):  # U·x = y, in place
+        lo, hi = k * panel, (k + 1) * panel
+        x[:, lo:hi] = f.uinv[:, k] @ x[:, lo:hi]
+        if lo > 0:
+            x[:, :lo] -= f.lug[:, :lo, lo:hi] @ x[:, lo:hi]
+    return x[:, :n]
+
+
+def _refine(x, residual, apply, tol: float, cap: int):
+    """Adaptive refinement loop shared by the batched panel solvers.
+
+    Returns (x, final residual norm).
+    """
+    r = residual(x)
+    r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
+    while r_norm > tol and r_norm < 0.95 * r_prev and it < cap:
+        x = x + apply(r)
+        r = residual(x)
+        r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+        it += 1
+    return x, r_norm
+
+
+def solve_batch_panel(
+    a: torch.Tensor,  # [G, N, N] working dtype (real)
+    b: torch.Tensor,  # [G, N, M] working dtype
+    config: MorfemConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Batched direct solve: full-pivot panel LU + adaptive refinement."""
+    f = panel_lu_factor(a, panel=config.panel_width)
+    work = torch.promote_types(a.dtype, b.dtype)
+    x = panel_lu_apply(f, b).to(work)
+    if torch.finfo(work).bits <= 32 or config.refine_iterations <= 0:
+        return x
+    a_w, b_w = a.to(work), b.to(work)
+    tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(b_w))
+    x, _ = _refine(
+        x, lambda x: b_w - a_w @ x, lambda r: panel_lu_apply(f, r).to(work),
+        tol, config.refine_iterations,
+    )
+    return x
+
+
+def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
+    """Full-order sweep: chunked panel LU + shared-operator refinement.
+
+    Per chunk of ``config.solve_chunk`` points: assemble A(t) in f32 from
+    pre-cast operators, factor, solve, then refine the whole chunk with
+    residuals against the three shared f64 operators. Under the default
+    ``panel_pivot="block"`` the block-pivot factor runs first and the chunk
+    escalates to the full-pivot factor when refinement stagnates above
+    max(10·ε·‖b‖, 1e-9·‖b‖). Returns x [I, N, M].
+    """
+    from morfem_tpu_torch.ops.assembly import impulse_vector
+
+    i_pts, n, m = sys.num_points, sys.n, sys.m
+    chunk = max(1, min(config.solve_chunk, i_pts))
+    pad = (-i_pts) % chunk
+    ts_all = torch.cat([sys.domain, sys.domain[-1:].expand(pad)])
+    work = sys.b.dtype
+    wide = torch.finfo(work).bits > 32
+    ops = sys.operators()
+    if config.symmetrize and not sys.symmetric_ops:
+        ops = tuple((o + o.T) * 0.5 for o in ops)
+    ops_w = torch.stack([o.to(work) for o in ops])  # [3, N, N]
+    # the factor only preconditions (residuals use the exact f64
+    # operators), so A(t) is assembled from pre-cast f32 operators
+    ops32 = ops_w.to(torch.float32)
+    cap = config.refine_iterations
+
+    def solve_chunk(ts):
+        c, cb = sys.coefficients(ts)  # [G, 3], [G]
+        a = torch.einsum("gp,pij->gij", c.to(torch.float32), ops32)
+        rhs = impulse_vector(sys.b, cb)
+        if not wide or cap <= 0:
+            f = panel_lu_factor(a, panel=config.panel_width)
+            return panel_lu_apply(f, rhs).to(work)
+        b_w = rhs.to(work)
+        b_norm = float(torch.linalg.norm(b_w))
+        tol = 10 * torch.finfo(work).eps * b_norm
+
+        def residual(x):
+            # one wide [N, N] @ [N, G·M] product per operator serves the
+            # whole chunk
+            g = x.shape[0]
+            xf = x.transpose(0, 1).reshape(n, g * m)
+            ys = (ops_w @ xf).reshape(3, n, g, m)
+            ax = (c.T.to(work)[:, None, :, None] * ys).sum(0)  # [N, G, M]
+            return b_w - ax.transpose(0, 1)
+
+        def factor_refine(trail, pivot):
+            factor = panel_lu_factor_block if pivot == "block" else (
+                panel_lu_factor
+            )
+            f = factor(a, trail=trail, panel=config.panel_width)
+            x = panel_lu_apply(f, rhs).to(work)
+            return _refine(
+                x, residual, lambda r: panel_lu_apply(f, r).to(work), tol, cap
+            )
+
+        sound_tol = max(tol, 1e-9 * b_norm)
+        first_trail = "f32x3" if config.panel_trail == "fast" else "f32x6"
+        if config.panel_pivot == "block":
+            x, r_norm = factor_refine(first_trail, "block")
+        elif config.panel_trail == "fast":
+            x, r_norm = factor_refine("f32x3", "full")
+        else:
+            return factor_refine("f32x6", "full")[0]
+        # "not <=" so that a NaN residual (an exactly singular diagonal
+        # block under block pivoting) escalates too
+        if not r_norm <= sound_tol:
+            x = factor_refine("f32x6", "full")[0]
+        return x
+
+    xs = torch.cat([solve_chunk(ts) for ts in ts_all.split(chunk)])
+    return xs[:i_pts]

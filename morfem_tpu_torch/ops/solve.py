@@ -1,0 +1,165 @@
+"""Dense linear solvers: mixed-precision LU with adaptive refinement.
+
+Counterpart of `morfem_tpu/ops/solve.py`. The factorization runs in the
+factor dtype (float32 by default) and the solution is refined in the
+working dtype (float64): ``r = b − A·x;  x += LU⁻¹·r`` until the residual
+reaches working precision or stops improving. Single solves use
+`torch.linalg.lu_factor`/`lu_solve` (the reference leaves them to XLA, not
+to a Pallas kernel). Residual products are plain float64 matmuls: the card
+has native f64, so the reference's Ozaki and chunked-product workarounds
+have no counterpart here.
+
+Batched full-order sweeps of real systems with a float32 factor on a CUDA
+device go to the blocked panel LU (`ops/panel_lu.py`) under
+``factorization="auto"``, as the reference routes them on its accelerator.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
+from morfem_tpu_torch.ops.assembly import assemble_at
+from morfem_tpu_torch.system import AffineSystem
+
+_COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+
+
+def _bits(dtype: torch.dtype) -> int:
+    return torch.finfo(dtype).bits
+
+
+def factor_dtype_like(dtype: torch.dtype, factor_dtype_name: str):
+    """Factorization dtype for a working dtype: complex stays complex, and
+    the factor is never wider than the working dtype."""
+    if dtype.is_complex:
+        if dtype == torch.complex64 or factor_dtype_name == "float32":
+            return torch.complex64
+        return torch.complex128
+    fd = getattr(torch, factor_dtype_name)
+    return dtype if _bits(dtype) < _bits(fd) else fd
+
+
+def lu_solve_refined(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    factor_dtype=torch.float32,
+    refine_iterations: int = 2,
+) -> torch.Tensor:
+    """Solve ``a @ x = b`` by LU in `factor_dtype` + refinement in a's dtype
+    (residuals are working-precision matmuls with ``a``)."""
+    work = torch.promote_types(a.dtype, b.dtype)
+    if work.is_complex and not factor_dtype.is_complex:
+        factor_dtype = _COMPLEX_OF[factor_dtype]
+    lu, piv = torch.linalg.lu_factor(a.to(factor_dtype))
+
+    def apply_factor(rhs):
+        return torch.linalg.lu_solve(lu, piv, rhs.to(factor_dtype)).to(work)
+
+    x = apply_factor(b)
+    if refine_iterations > 0 and _bits(work) > _bits(factor_dtype):
+        x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
+    return x
+
+
+def _refine_adaptive(a, b, x0, apply_factor, refine_iterations: int):
+    """Adaptive iterative refinement around any approximate solver.
+
+    Stops at working precision (10·ε·‖b‖), when an iteration fails to cut
+    the residual norm by 5 %, or at the cap — the reference's
+    `lax.while_loop` criterion, run as a host loop.
+    """
+    work = torch.promote_types(a.dtype, b.dtype)
+    a_w = a.to(work)
+    b_w = b.to(work)
+    tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(b_w))
+    x = x0
+    r = b_w - a_w @ x
+    r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
+    while r_norm > tol and r_norm < 0.95 * r_prev and it < refine_iterations:
+        x = x + apply_factor(r)
+        r = b_w - a_w @ x
+        r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+        it += 1
+    return x
+
+
+def use_panel_factorization(
+    a_dtype: torch.dtype, config: MorfemConfig, device: torch.device
+) -> bool:
+    """Whether a batched sweep takes the blocked panel-LU path.
+
+    "panel" forces it (real operators only); "auto" picks it for real
+    systems with a float32 factor on a CUDA device.
+    """
+    if config.factorization == "panel":
+        if a_dtype.is_complex:
+            raise ValueError(
+                "factorization='panel' supports real operators only"
+            )
+        return True
+    if config.factorization == "auto":
+        return (
+            not a_dtype.is_complex
+            and config.factor_dtype_name == "float32"
+            and torch.device(device).type == "cuda"
+        )
+    return False
+
+
+def solve_dense(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    config: MorfemConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Direct dense solve honouring `config.factorization`.
+
+    Only an explicit ``"panel"`` sends a single solve through the panel
+    LU; ``"auto"`` keeps single solves on `torch.linalg` LU.
+    """
+    if config.factorization == "panel" and not a.dtype.is_complex:
+        from morfem_tpu_torch.ops.panel_lu import solve_batch_panel
+
+        return solve_batch_panel(a[None], b[None], config)[0]
+    return lu_solve_refined(
+        a,
+        b,
+        factor_dtype=factor_dtype_like(a.dtype, config.factor_dtype_name),
+        refine_iterations=config.refine_iterations,
+    )
+
+
+def solve_point(
+    sys: AffineSystem, t, config: MorfemConfig = DEFAULT_CONFIG
+) -> torch.Tensor:
+    """Full-order solve at one point: assemble A(t), b(t), solve → [N, M]."""
+    a, b = assemble_at(sys, t, symmetrize=config.symmetrize)
+    return solve_dense(a, b, config)
+
+
+def solve_batch(
+    sys: AffineSystem, ts: torch.Tensor, config: MorfemConfig = DEFAULT_CONFIG
+) -> torch.Tensor:
+    """Full-order solves at a batch of points, one after another → [B, N, M].
+
+    Each point keeps its own adaptive refinement, as under the reference's
+    `vmap`.
+    """
+    return torch.stack([solve_point(sys, t, config) for t in ts])
+
+
+def solve_sweep(
+    sys: AffineSystem, config: MorfemConfig = DEFAULT_CONFIG
+) -> torch.Tensor:
+    """Full-order sweep over the whole domain — the no-MOR baseline.
+
+    Returns x [I, N, M]. Real systems with a float32 factor on a CUDA
+    device (or any real system under ``factorization="panel"``) run the
+    chunked panel-LU sweep; the rest solve point by point.
+    """
+    if use_panel_factorization(sys.b.dtype, config, sys.device):
+        from morfem_tpu_torch.ops.panel_lu import solve_sweep_panel
+
+        return solve_sweep_panel(sys, config)
+    return solve_batch(sys, sys.domain, config)

@@ -1,0 +1,151 @@
+"""The port's kernel modules (K1-K3) against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX kernels
+run in interpret mode, as the JAX package's own tests run them. Inputs
+are made with numpy from fixed seeds and fed to both. The CUDA kernels
+themselves are held against the same plain versions on the card by
+`chip_smoke.py` (no CUDA kernel runs here).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from morfem_tpu.ops.pallas.fused_mm import mm_words as jax_mm_words
+from morfem_tpu.ops.pallas.panel_factor import panel_factor as jax_panel_factor
+from morfem_tpu.ops.pallas.row_gather import gather_rows as jax_gather_rows
+from morfem_tpu_torch.ops.kernels import (
+    gather_rows,
+    launch_counts,
+    mm_words,
+    panel_factor,
+    reset_launch_counts,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in several worker
+    processes on a shared CPU, and a full thread pool per process
+    oversubscribes it (these are small ops)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize(
+    "g,p,npl,used", [(2, 16, 128, 0), (2, 128, 256, 64), (1, 8, 384, 100)]
+)
+def test_panel_factor_matches_pallas(g, p, npl, used):
+    rng = np.random.default_rng(100 + p + used)
+    pt = rng.standard_normal((g, p, npl)).astype(np.float32)
+    av = np.ones((g, npl), np.float32)
+    for i in range(g):
+        av[i, rng.choice(npl, used, replace=False)] = 0.0
+    ref = [np.asarray(x) for x in jax_panel_factor(pt, av, interpret=True)]
+    got = [x.numpy() for x in panel_factor(torch.from_numpy(pt),
+                                           torch.from_numpy(av))]
+    # pivot sequences and availability must match exactly
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert got[2].dtype == np.int32
+    np.testing.assert_array_equal(got[3], ref[3])
+    # the reference blocks the column steps by 8 with rank-8 updates, the
+    # port eliminates one column at a time: the same algebra rounded in
+    # another order, ~1e-6 of the entries' scale in f32 at these widths
+    for a, b in ((got[0], ref[0]), (got[1], ref[1])):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_panel_factor_lowest_index_wins_ties():
+    # two available rows with the same |value|: the lower index pivots
+    pt = np.zeros((1, 8, 128), np.float32)
+    pt[0, :, :] = np.eye(8, 128, dtype=np.float32)
+    pt[0, 0, 5] = -1.0  # |pt[0, 5]| == |pt[0, 0]|
+    pt[0, 0, 3] = 1.0
+    av = np.ones((1, 128), np.float32)
+    ref = np.asarray(jax_panel_factor(pt, av, interpret=True)[2])
+    got = panel_factor(torch.from_numpy(pt), torch.from_numpy(av))[2].numpy()
+    assert got[0, 0] == 0
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("with_t,sign", [(False, 1), (True, 1), (True, -1)])
+def test_mm_words_matches_pallas(with_t, sign):
+    rng = np.random.default_rng(7 + sign + 2 * with_t)
+    g, m, k, n = 2, 128, 256, 128
+    c = rng.standard_normal((g, m, k)).astype(np.float32)
+    r = rng.standard_normal((g, k, n)).astype(np.float32)
+    t = rng.standard_normal((g, m, n)).astype(np.float32) if with_t else None
+    ref = np.asarray(jax_mm_words(c, r, t, sign=sign, interpret=True))
+    got = mm_words(
+        torch.from_numpy(c), torch.from_numpy(r),
+        None if t is None else torch.from_numpy(t), sign=sign,
+    ).numpy()
+    # both are f32-true products (3-word bf16 split vs FP32), summed over
+    # K=256 in different orders: f32 rounding, ~1e-7 relative per term
+    scale = np.abs(c).astype(np.float64) @ np.abs(r)
+    if t is not None:
+        scale = scale + np.abs(t)
+    assert np.abs(got - ref).max() <= 1e-6 * scale.max()
+
+
+def test_mm_words_strided_views_and_ragged_shapes():
+    rng = np.random.default_rng(3)
+    c = torch.from_numpy(rng.standard_normal((2, 70, 50)).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal((2, 50, 90)).astype(np.float32))
+    out = mm_words(c.transpose(1, 2).contiguous().transpose(1, 2), r)
+    ref = c.double() @ r.double()
+    assert (out.double() - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_mm_words_rejects_bad_shapes():
+    c = torch.zeros((1, 128, 128))
+    with pytest.raises(ValueError):
+        mm_words(c, torch.zeros((1, 64, 128)))
+    with pytest.raises(ValueError):
+        mm_words(c, torch.zeros((1, 128, 128)), torch.zeros((1, 8, 8)))
+    with pytest.raises(ValueError):
+        mm_words(c.double(), torch.zeros((1, 128, 128)).double())
+
+
+@pytest.mark.parametrize("p", [128, 256])
+def test_gather_rows_matches_pallas(p):
+    rng = np.random.default_rng(p)
+    g, n, w = 2, 256, 128
+    src = rng.standard_normal((g, n, w)).astype(np.float32)
+    idx = np.stack([rng.permutation(n)[:p] for _ in range(g)]).astype(np.int32)
+    ref = np.asarray(jax_gather_rows(src, idx, interpret=True))
+    got = gather_rows(torch.from_numpy(src), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(got, ref)  # a gather is exact
+
+
+@pytest.mark.parametrize(
+    "shape,idx_shape,dtype",
+    [
+        ((1, 256, 128), (1, 100), torch.float32),  # P % 128
+        ((1, 252, 128), (1, 128), torch.float32),  # N % 8
+        ((1, 256, 100), (1, 128), torch.float32),  # W % 128
+        ((2, 256, 128), (1, 128), torch.float32),  # batch mismatch
+        ((1, 256, 128), (1, 128), torch.float64),  # f32 only
+    ],
+)
+def test_gather_rows_rejects_what_the_reference_rejects(shape, idx_shape,
+                                                        dtype):
+    src = torch.zeros(shape, dtype=dtype)
+    idx = torch.zeros(idx_shape, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        gather_rows(src, idx)
+    with pytest.raises(ValueError):
+        jax_gather_rows(src.numpy(), idx.numpy(), interpret=True)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    reset_launch_counts()
+    x = torch.ones((1, 128, 128))
+    panel_factor(torch.eye(8, 128)[None].contiguous(), torch.ones((1, 128)))
+    mm_words(x, x)
+    gather_rows(x, torch.zeros((1, 128), dtype=torch.int32))
+    assert launch_counts() == {
+        "panel_factor": 0, "mm_words": 0, "gather_rows": 0,
+    }

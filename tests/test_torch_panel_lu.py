@@ -1,0 +1,120 @@
+"""The port's panel LU (ops/panel_lu.py) against the JAX package and NumPy.
+
+The port runs its kernels' plain versions here; the JAX panel LU runs its
+Pallas kernels in interpret mode. Inputs are made with numpy from fixed
+seeds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from morfem_tpu import AffineSystem as JaxAffineSystem
+from morfem_tpu.config import MorfemConfig as JaxConfig
+from morfem_tpu.ops.panel_lu import solve_sweep_panel as jax_solve_sweep_panel
+from morfem_tpu_torch.compat import system_from_numpy
+from morfem_tpu_torch.config import MorfemConfig
+from morfem_tpu_torch.ops.panel_lu import (
+    panel_lu_apply,
+    panel_lu_factor,
+    panel_lu_factor_block,
+    solve_batch_panel,
+    solve_sweep_panel,
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for torch: the suite runs in several worker
+    processes on a shared CPU, and a full thread pool per process
+    oversubscribes it (these are small ops)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _spd_pencil(n, seed):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    a0 = (q * np.linspace(1.0, 50.0, n)) @ q.T
+    a0 = (a0 + a0.T) / 2
+    a2 = -np.eye(n) - 0.01 * np.diag(rng.uniform(size=n))
+    b = rng.standard_normal((n, 2))
+    return a0, np.zeros((n, n)), a2, b
+
+
+@pytest.mark.parametrize("factor", [panel_lu_factor, panel_lu_factor_block])
+@pytest.mark.parametrize("n", [100, 256, 300])
+def test_factor_apply_f32_quality(factor, n):
+    rng = np.random.default_rng(500 + n)
+    a = rng.standard_normal((2, n, n)) + 0.5 * n**0.5 * np.eye(n)
+    b = rng.standard_normal((2, n, 3))
+    f = factor(torch.from_numpy(a), panel=128)
+    x = panel_lu_apply(f, torch.from_numpy(b)).double().numpy()
+    relres = np.linalg.norm(a @ x - b) / np.linalg.norm(b)
+    # an f32 factor is cond·ε_f32-class by contract (callers refine in f64)
+    cond = max(np.linalg.cond(a[i]) for i in range(2))
+    assert relres < 100 * cond * np.finfo(np.float32).eps, (relres, cond)
+
+
+def test_refined_batch_solve_matches_numpy():
+    rng = np.random.default_rng(11)
+    n = 200
+    a = rng.standard_normal((2, n, n))
+    a[0, 0, 0] = 0.0  # forces a pivot exchange at the first column
+    b = rng.standard_normal((2, n, 2))
+    x = solve_batch_panel(
+        torch.from_numpy(a), torch.from_numpy(b),
+        MorfemConfig(refine_iterations=8, panel_width=128),
+    ).numpy()
+    x_np = np.linalg.solve(a, b)
+    # f64 refinement to working precision; cond of a gaussian 200×200 draw
+    # is ~1e3, so the solution agrees to ~1e-13
+    assert np.linalg.norm(x - x_np) / np.linalg.norm(x_np) < 1e-11
+
+
+@pytest.mark.parametrize("pivot", ["block", "full"])
+def test_sweep_matches_jax_and_numpy(pivot):
+    n, pts = 200, 5
+    a0, a1, a2, b = _spd_pencil(n, 21)
+    domain = np.linspace(1.5, 6.5, pts)
+    kw = dict(factorization="panel", panel_width=128, solve_chunk=2,
+              panel_pivot=pivot)
+    x = solve_sweep_panel(
+        system_from_numpy(domain, a0, a1, a2, b, device="cpu"),
+        MorfemConfig(**kw),
+    ).numpy()
+    jsys = JaxAffineSystem.create(
+        jnp.asarray(domain), a0, a1, a2, b
+    )
+    x_jax = np.asarray(jax_solve_sweep_panel(jsys, JaxConfig(**kw)))
+    x_np = np.stack([
+        np.linalg.solve(a0 + t * a1 + t * t * a2, t * b) for t in domain
+    ])
+    # both refine in f64 until the residual stops improving; the pencil's
+    # cond stays below ~1e3 on this grid, so solutions agree to ~1e-13
+    scale = np.linalg.norm(x_np)
+    assert np.linalg.norm(x - x_np) / scale < 1e-11
+    assert np.linalg.norm(x - x_jax) / scale < 1e-11
+
+
+def test_block_factor_escalates_on_singular_diagonal_block():
+    # the leading 128×128 block is singular: block pivoting cannot factor
+    # it soundly, so the chunk must escalate to the full-pivot factor
+    n = 256
+    rng = np.random.default_rng(5)
+    a0 = rng.standard_normal((n, n))
+    a0 = a0 + a0.T + 4 * np.sqrt(n) * np.eye(n)
+    a0[:128, :128] = 0.0
+    domain = np.array([1.0, 2.0])
+    z = np.zeros((n, n))
+    b = rng.standard_normal((n, 1))
+    sys_ = system_from_numpy(domain, a0, z, z, b, device="cpu")
+    x = solve_sweep_panel(
+        sys_, MorfemConfig(factorization="panel", panel_width=128)
+    ).numpy()
+    x_np = np.stack([np.linalg.solve(a0, t * b) for t in domain])
+    assert np.all(np.isfinite(x))
+    assert np.linalg.norm(x - x_np) / np.linalg.norm(x_np) < 1e-10
