@@ -15,7 +15,25 @@ Phases, each printing one progress line with its seconds and numbers:
   4. slice   — the waveguide (N=3411, M=2, I=100, bundled data): the MOR GSM
                (greedy + spectral sweep) against the full-order GSM (panel-LU
                sweep through K1-K3), f64 spot checks of full-order solutions,
-               and each kernel's launch count over that run.
+               and each kernel's launch count over that run;
+  5. reduced_lu — the same waveguide through morfem() with the reduced LU
+               sweep on K4 (sweep_method="lu", use_pallas_reduced_sweep=True):
+               its GSM against the full-order GSM, then the serving re-sweep
+               of the trimmed model on a 10,000-point grid against the
+               batched library LU, with points/s;
+  6. matfree — the 2-D waveguide pencil at N=34,225 (SciPy sparse, RCM-banded
+               matrix-free route) through morfem(), default sweep and then the
+               K4 LU sweep, against banded direct oracle solves at 7 points;
+  7. general — the same pencil at N=9,409 forced onto the general-sparsity
+               route (band_max_half=128: truncated band + exact-operator
+               GMRES), same oracle check;
+  8. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
+               (K5) and on a block-sparse operator (K6) at N=34,225, checked
+               against scipy.sparse.linalg.spsolve at 3 points.
+
+Each path's kernels are counted from zero over that path's run alone and
+must have launched; the kernels phase (3) holds K4-K6 against their plain
+versions too, at the shapes these paths give them.
 
 A watchdog (faulthandler) ends a phase that hangs, with a traceback and a
 non-zero exit; the phase's name is on the last progress line. Any failed
@@ -33,21 +51,38 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 # seconds each phase may take before the watchdog ends the run
-BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900}
+BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
+          "reduced_lu": 300, "matfree": 600, "general": 600, "krylov": 600}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
 REPLACES = {
     "panel_factor": "morfem_tpu/ops/pallas/panel_factor.py:60",
     "mm_words": "morfem_tpu/ops/pallas/fused_mm.py:74",
     "gather_rows": "morfem_tpu/ops/pallas/row_gather.py:45",
+    "gauss_jordan_sweep_solve": "morfem_tpu/ops/pallas/reduced_sweep.py:51",
+    "banded_matvec_padded": "morfem_tpu/ops/pallas/banded_matvec.py:75",
+    "bsr_matmul_f32": "morfem_tpu/ops/block_sparse.py:125",
 }
 SOURCES = {
     "panel_factor": "morfem_tpu_torch/csrc/panel_factor.cu",
     "mm_words": "morfem_tpu_torch/csrc/fused_mm.cu",
     "gather_rows": "morfem_tpu_torch/csrc/row_gather.cu",
+    "gauss_jordan_sweep_solve": "morfem_tpu_torch/csrc/reduced_sweep.cu",
+    "banded_matvec_padded": "morfem_tpu_torch/csrc/banded_matvec.cu",
+    "bsr_matmul_f32": "morfem_tpu_torch/csrc/block_sparse.cu",
 }
+P_34K = 185  # N = 185² = 34,225: the reference's ~34k-DOF stress size
+# Cross-section side of the general-route phase: N = 97² = 9,409, the
+# reference's in-bench banded size (tools/bench_banded.py). Its RCM
+# half-bandwidth (~2p) exceeds band_max_half=128, so morfem() takes the
+# general route; the natural ordering's (p+1) does not, so the truncated
+# band keeps every coupling and the shifted preconditioner is exact up to
+# its shift. At p=185 the truncated band drops the vertical couplings and
+# GMRES stalls at ~1e-2 relative residual (PERF.md).
+GENERAL_P = 97
 
 
 class CheckFailed(RuntimeError):
@@ -245,12 +280,183 @@ def kernel_phase(dev):
         keep("gather_rows", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib_ms, shape=[g, n, w, p])
+    _kernels_k4(dev, gen, keep)
+    _kernels_k5(dev, gen, keep)
+    _kernels_k6(dev, gen, keep)
     rec = {}
     for name, rows in results.items():
         principal = next(r for p, r in rows if p)
         worst = max(r["max_abs_err"] for _, r in rows)
         rec[name] = dict(principal, max_abs_err=worst)
     return rec
+
+
+def _kernels_k4(dev, gen, keep):
+    """K4 at the waveguide's reduced size (K=40, M=2) for the I=100 build
+    grid and the 10,000-point serving grid."""
+    import torch
+
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve, gauss_jordan_sweep_solve_plain,
+    )
+
+    k, m = 40, 2
+    rs = [torch.randn((k, k), generator=gen, device=dev, dtype=torch.float64)
+          for _ in range(3)]
+    rs[0] = rs[0] + 4 * k * torch.eye(k, device=dev, dtype=torch.float64)
+    inactive = torch.zeros(k, device=dev, dtype=torch.float64)
+    inactive[k - 2:] = 1.0  # two inactive (identity-padded) columns
+    for i_pts, principal in ((100, False), (10000, True)):
+        c = torch.rand((i_pts, 3), generator=gen, device=dev,
+                       dtype=torch.float64) + 0.5
+        rhs = torch.randn((i_pts, k, m), generator=gen, device=dev,
+                          dtype=torch.float64)
+        args = (*rs, c, rhs, inactive)
+        out_k = gauss_jordan_sweep_solve(*args)
+        out_p = gauss_jordan_sweep_solve_plain(*args)
+        err = float((out_k - out_p).abs().max())
+        # the same pivots and roundings step for step: equal in practice;
+        # the tolerance covers f32 rounding-order differences only
+        check(err <= 1e-5 * float(out_p.abs().max()),
+              f"K4 error {err} at I={i_pts}")
+        ms = cuda_ms(lambda: gauss_jordan_sweep_solve(*args))
+        plain_ms = cuda_ms(lambda: gauss_jordan_sweep_solve_plain(*args), 2)
+        # library: batched LU solve of the PRE-ASSEMBLED f32 systems (the
+        # kernel also assembles them; that part is left out here)
+        r32 = [(r.float() + r.float().T) * 0.5 for r in rs]
+        a32 = (c[:, 0, None, None].float() * r32[0]
+               + c[:, 1, None, None].float() * r32[1]
+               + c[:, 2, None, None].float() * r32[2]
+               + torch.diag(inactive.float()))
+        b32 = rhs.float()
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(a32, b32))
+        flops = i_pts * (5 * k * k + k * k * (k - 1) + 2 * k * k * m)
+        nbytes = 4 * (3 * k * k + k + 3 * i_pts + 2 * i_pts * k * m)
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"  K4 gauss_jordan_sweep_solve K={k} I={i_pts} M={m}: "
+              f"max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"(linalg.solve, assembly excluded) bound_ms={b_ms:.5f} "
+              f"({b_by})", flush=True)
+        keep("gauss_jordan_sweep_solve", principal, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib_ms, shape=[i_pts, k, m])
+
+
+def _band_csr(band, half):
+    """torch CSR of the banded matrix held in diagonal storage."""
+    import torch
+
+    n, bw = band.shape
+    rows = torch.arange(n, device=band.device)[:, None].expand(n, bw)
+    cols = rows + torch.arange(bw, device=band.device)[None, :] - half
+    ok = (cols >= 0) & (cols < n)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # beta-state notices
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows[ok], cols[ok]]), band[ok], (n, n),
+            check_invariants=True)
+        return coo.coalesce().to_sparse_csr()
+
+
+def _kernels_k5(dev, gen, keep):
+    """K5 at the Krylov phase's shape: N=34,225, bw=13, M=2."""
+    import torch
+
+    from morfem_tpu_torch.ops.kernels import (
+        banded_matvec_padded, banded_matvec_padded_plain,
+    )
+
+    n, half, m = P_34K ** 2, 6, 2
+    bw = 2 * half + 1
+    band = torch.randn((n, bw), generator=gen, device=dev)
+    x = torch.randn((n, m), generator=gen, device=dev)
+    out_k = banded_matvec_padded(band, n, bw, half, x)
+    out_p = banded_matvec_padded_plain(band, n, bw, half, x)
+    err = float((out_k - out_p).abs().max())
+    check(err == 0.0, f"K5 differs from its plain version: {err}")
+    ms = cuda_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
+    plain_ms = cuda_ms(lambda: banded_matvec_padded_plain(band, n, bw, half,
+                                                          x))
+    csr = _band_csr(band, half)
+    lib_ms = cuda_ms(lambda: csr @ x, 50)
+    b_ms, b_by = bound(4 * (n * bw + 2 * n * m), 2 * n * bw * m)
+    print(f"  K5 banded_matvec_padded N={n} bw={bw} M={m}: "
+          f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (CSR @ dense) bound_ms={b_ms:.5f} "
+          f"({b_by})", flush=True)
+    keep("banded_matvec_padded", True, max_abs_err=err, ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+         shape=[n, bw, m])
+
+
+def _kernels_k6(dev, gen, keep):
+    """K6 on the Krylov phase's block-sparse operator (N=34,225, M=2)."""
+    import torch
+
+    from morfem_tpu_torch.ops.block_sparse import BlockSparseAffineOperator
+    from morfem_tpu_torch.ops.kernels import (
+        bsr_matmul_f32, bsr_matmul_f32_plain,
+    )
+    from morfem_tpu_torch.ops.sparse import to_csr
+
+    mats = krylov_pencil(P_34K ** 2, scattered=True)
+    op = BlockSparseAffineOperator(*mats, device=dev)
+    c = torch.tensor([1.0, 0.0, 2.25], dtype=torch.float64, device=dev)
+    nb = op.brows.shape[0]
+    vals2d = op._combined(c).float().reshape(nb * op.br, op.bc)
+    n, m = op.n, 2
+    x = torch.randn((n, m), generator=gen, device=dev)
+    args = (vals2d, op.brows, op.bcols, op.nbr, op.nbc, n, op.br, op.bc, x)
+    out_k = bsr_matmul_f32(*args, rowptr=op.rowptr)
+    out_p = bsr_matmul_f32_plain(*args)
+    err = float((out_k - out_p).abs().max())
+    scale = float(bsr_matmul_f32_plain(vals2d.abs(), *args[1:8],
+                                       x.abs()).max())
+    # f32 sums over each block row in another order than bmm + index_add_
+    check(err <= 1e-5 * scale, f"K6 error {err} (scale {scale})")
+    ms = cuda_ms(lambda: bsr_matmul_f32(*args, rowptr=op.rowptr), 20)
+    plain_ms = cuda_ms(lambda: bsr_matmul_f32_plain(*args))
+    a = sum(float(c[p]) * (mp + mp.T) * 0.5 for p, mp in enumerate(mats))
+    csr = to_csr(a, dtype=torch.float32, device=dev)
+    lib_ms = cuda_ms(lambda: csr @ x, 20)
+    nbytes = (4 * nb * op.br * op.bc + 4 * nb + 4 * (op.nbr + 1)
+              + 4 * 2 * n * m)
+    b_ms, b_by = bound(nbytes, 2 * nb * op.br * op.bc * m)
+    print(f"  K6 bsr_matmul_f32 N={n} blocks={nb} ({op.br}x{op.bc}) M={m} "
+          f"csr_nnz={a.nnz}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (CSR @ dense) "
+          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+    keep("bsr_matmul_f32", True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=[nb, n, m])
+
+
+def krylov_pencil(n, scattered=False, half=6, seed=0):
+    """A diagonally dominant banded pencil (a0, 0, a2) as SciPy CSR, as the
+    JAX package's matrix-free greedy tests build it; with ``scattered``, a0
+    also carries a weak scattered off-band remainder (as its block-sparse
+    tests add), so the block-sparse operator holds far blocks."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+
+    def band(scale, shift):
+        diags = [rng.normal(size=n - abs(d)) * scale / (1 + abs(d))
+                 for d in range(-half, half + 1)]
+        a = sp.diags(diags, offsets=range(-half, half + 1)).tocsr()
+        return ((a + a.T) * 0.5 + sp.eye(n) * shift).tocsr()
+
+    a0 = band(1.0, 12.0)
+    a2 = band(0.3, 0.0)
+    if scattered:
+        nfar = n // 16
+        far = sp.coo_matrix(
+            (0.05 * rng.standard_normal(nfar),
+             (rng.integers(0, n, nfar), rng.integers(0, n, nfar))),
+            shape=(n, n))
+        a0 = (a0 + far + far.T).tocsr()
+    return a0, sp.csr_matrix((n, n)), a2
 
 
 def slice_phase(dev, n_expected=3411, points=100):
@@ -310,9 +516,258 @@ def slice_phase(dev, n_expected=3411, points=100):
               flush=True)
         check(rel < 1e-9, f"spot check at f={float(t)}: {rel} >= 1e-9")
     print("  kernels " + json.dumps(counts), flush=True)
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-    return counts
+    for name in ("panel_factor", "mm_words", "gather_rows"):
+        check(counts[name] > 0,
+              f"kernel {name} was not launched on the main path")
+    return counts, sys_, gsm_full
+
+
+def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
+    """The waveguide through morfem() with the reduced LU sweep on K4, then
+    the serving re-sweep of the trimmed model on a dense grid."""
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig, PhaseTimer, morfem, sweep
+    from morfem_tpu_torch.apps.waveguide import generalized_scattering_matrix
+    from morfem_tpu_torch.mor.reduced import (
+        ReducedModel, assemble_reduced, solve_reduced_batch,
+    )
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = MorfemConfig(error_threshold=1e-10, sweep_method="lu",
+                       use_pallas_reduced_sweep=True)
+    timer = PhaseTimer(device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, q, r0, r1, r2, b_r = morfem(
+        sys_.domain, sys_.a0, sys_.a1, sys_.a2, sys_.b, t_b=sys_.t_b,
+        config=cfg, timer=timer, device=dev)
+    _, cb = sys_.coefficients(sys_.domain)
+    gsm = generalized_scattering_matrix(sys_.domain, x,
+                                        cb[:, None, None] * b_r)
+    torch.cuda.synchronize()
+    t_mor = time.perf_counter() - t0
+    k4_build = launch_counts()["gauss_jordan_sweep_solve"]
+    err = float((gsm - gsm_full).abs().max())
+    print(f"  reduced_lu N={sys_.n} Nr={q.shape[1]} mor_s={t_mor:.3f} "
+          f"max|S_mor(K4 LU)-S_full|={err:.3e} K4_launches={k4_build}",
+          flush=True)
+    for name, t in timer.times.items():
+        print(f"  reduced_lu phase '{name}': {t:.3f} s", flush=True)
+    check(bool(torch.isfinite(gsm).all()), "non-finite GSM (K4 LU sweep)")
+    check(err < 1e-8, f"max|S_mor(K4 LU) - S_full| = {err} >= 1e-8")
+    check(k4_build > 0, "K4 was not launched by the reduced LU sweep")
+
+    rm = ReducedModel(domain=sys_.domain, q=q, r0=r0, r1=r1, r2=r2, b_r=b_r,
+                      ncols=q.shape[1], t_a0=sys_.t_a0, t_a1=sys_.t_a1,
+                      t_a2=sys_.t_a2, t_b=sys_.t_b)
+    ts = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                        device=dev)
+    sweep(rm, cfg, ts)  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xs = sweep(rm, cfg, ts)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    k4_serve = launch_counts()["gauss_jordan_sweep_solve"]
+    a, rhs = assemble_reduced(rm, ts, cfg)
+    xl = solve_reduced_batch(a, rhs, cfg)
+    rel = float(torch.linalg.norm(xs - xl) / torch.linalg.norm(xl))
+    print(f"  reduced_lu serve I={serve_points}: sweep_s={t_serve:.4f} "
+          f"points_per_s={serve_points / t_serve:.1f} "
+          f"rel_vs_batched_lu={rel:.3e} K4_launches={k4_serve}", flush=True)
+    check(rel < 1e-9, f"10k re-sweep rel error {rel} >= 1e-9")
+    check(k4_serve > 0, "K4 was not launched by the serving re-sweep")
+    return k4_build + k4_serve
+
+
+def _waveguide_2d(p):
+    """The reference's ~34k-DOF stress pencil (p=185): SciPy CSR slots
+    (C, 0, Γ = scaled T) and the two ports, as tools/bench_banded.py
+    builds them."""
+    from morfem_tpu_torch.apps.waveguide import GAMMA_SCALE
+    from morfem_tpu_torch.utils.synthetic import banded_waveguide_system_2d
+
+    c_sp, t_sp, wp = banded_waveguide_system_2d(p, m=2, seed=1)
+    return c_sp, 0.0 * c_sp, (t_sp * GAMMA_SCALE).tocsr(), wp
+
+
+def _oracle(dev, mats, wp, freq, cfg, count=7):
+    """Banded direct full-order solves at `count` grid points, in RCM order:
+    (indices, perm, x [count, N, M])."""
+    import numpy as np
+    import torch
+
+    from morfem_tpu_torch.ops.block_tridiag import (
+        banded_direct_solve, banded_via_rcm,
+    )
+
+    op, perm = banded_via_rcm(*mats, symmetrize=cfg.symmetrize, device=dev)
+    b = torch.as_tensor(wp, device=dev)[perm]
+    idx = np.linspace(0, len(freq) - 1, count, dtype=int)
+    xs = []
+    for i in idx:
+        f = float(freq[i])
+        c = torch.tensor([1.0, f, f * f], dtype=torch.float64, device=dev)
+        xs.append(banded_direct_solve(op, c, f * b, cfg)[0])
+    return idx, perm, torch.stack(xs)
+
+
+def _rel_vs_oracle(x, q, oracle):
+    import torch
+
+    idx, perm, x_or = oracle
+    rec = torch.einsum("nk,ikm->inm", q[perm], x[torch.as_tensor(idx)])
+    return float(torch.linalg.norm(rec - x_or) / torch.linalg.norm(x_or))
+
+
+def _morfem_run(dev, label, mats, wp, freq, cfg):
+    import torch
+
+    from morfem_tpu_torch import PhaseTimer, morfem
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    timer = PhaseTimer(device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, q, *_ = morfem(freq, *mats, wp, config=cfg, timer=timer, device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    nr, m = q.shape[1], wp.shape[1]
+    check(bool(torch.isfinite(x).all() and torch.isfinite(q).all()),
+          f"{label}: non-finite result")
+    check(tuple(x.shape) == (len(freq), nr, m) and q.shape[0] == wp.shape[0],
+          f"{label}: shapes {tuple(x.shape)}, {tuple(q.shape)}")
+    print(f"  {label} N={q.shape[0]} I={len(freq)}: Nr={nr} "
+          f"greedy_iterations={(nr - 2 * m) // m + 1} (derived: seeds + one "
+          f"snapshot per iteration) total_s={total:.3f} "
+          + " ".join(f"{k}_s={v:.3f}" for k, v in timer.times.items())
+          + " launches=" + json.dumps(counts), flush=True)
+    return x, q, counts
+
+
+def matfree_phase(dev, p=P_34K, points=100):
+    """morfem() on the N=p² SciPy-sparse pencil: the RCM-banded matrix-free
+    route, default sweep and then the K4 LU sweep, against banded direct
+    oracle solves at 7 grid points."""
+    import numpy as np
+
+    from morfem_tpu_torch import MorfemConfig
+
+    c_sp, zero, gamma, wp = _waveguide_2d(p)
+    mats = (c_sp, zero, gamma)
+    freq = np.linspace(3e9, 5e9, points)
+    cfg = MorfemConfig(error_threshold=1e-8)
+    oracle = _oracle(dev, mats, wp, freq, cfg)
+    k4 = 0
+    for label, c in (("matfree", cfg),
+                     ("matfree_k4_lu", cfg.replace(
+                         sweep_method="lu", use_pallas_reduced_sweep=True))):
+        x, q, counts = _morfem_run(dev, label, mats, wp, freq, c)
+        rel = _rel_vs_oracle(x, q, oracle)
+        print(f"  {label}: rel_err_vs_banded_oracle(7 points)={rel:.3e}",
+              flush=True)
+        check(rel < 1e-7, f"{label}: rel error vs oracle {rel} >= 1e-7")
+        if c.use_pallas_reduced_sweep:
+            k4 = counts["gauss_jordan_sweep_solve"]
+            check(k4 > 0, "K4 was not launched by the matrix-free LU sweep")
+    return k4
+
+
+def general_phase(dev, p=GENERAL_P, points=100):
+    """The 2-D waveguide pencil at N=p² forced onto the general-sparsity
+    route (band_max_half=128 < the RCM half-bandwidth: BandwidthError →
+    truncated band + exact-operator GMRES), same oracle check."""
+    import numpy as np
+
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig
+    from morfem_tpu_torch.ops.block_tridiag import (
+        BandwidthError, banded_via_rcm, truncated_band_via_rcm,
+    )
+
+    cfg = MorfemConfig(error_threshold=1e-8, band_max_half=128)
+    c_sp, zero, gamma, wp = _waveguide_2d(p)
+    mats = (c_sp, zero, gamma)
+    freq = np.linspace(3e9, 5e9, points)
+    oracle = _oracle(dev, mats, wp, freq, cfg)
+    try:
+        banded_via_rcm(*mats, max_half=cfg.band_max_half, device=dev)
+        raise CheckFailed("the general phase's pencil is band-recoverable")
+    except BandwidthError as e:
+        print(f"  general: {e}", flush=True)
+    exact, _, perm, dropped = truncated_band_via_rcm(
+        *mats, band_half=cfg.band_max_half, device="cpu")
+    natural = bool((perm == torch.arange(perm.numel())).all())
+    print(f"  general: exact operator {type(exact).__name__}, "
+          f"{'natural' if natural else 'RCM'} ordering, out-of-band mass "
+          f"dropped by the preconditioner {dropped:.3e}", flush=True)
+    x, q, _ = _morfem_run(dev, "general", mats, wp, freq, cfg)
+    rel = _rel_vs_oracle(x, q, oracle)
+    print(f"  general: rel_err_vs_banded_oracle(7 points)={rel:.3e}",
+          flush=True)
+    check(rel < 1e-7, f"general: rel error vs oracle {rel} >= 1e-7")
+
+
+def krylov_phase(dev, points=100):
+    """greedy_basis_matfree(method="bicgstab") on a banded operator (K5)
+    and a block-sparse operator (K6) at N=34,225, checked against
+    scipy.sparse.linalg.spsolve at 3 points."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig, sweep
+    from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree
+    from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
+    from morfem_tpu_torch.ops.block_sparse import BlockSparseAffineOperator
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    n = P_34K ** 2
+    domain = np.linspace(1.0, 2.0, points)
+    b = np.random.default_rng(1).normal(size=(n, 2))
+    cfg = MorfemConfig(error_threshold=1e-9)
+    launches = {}
+    for kind, kernel in (("banded", "banded_matvec_padded"),
+                         ("block_sparse", "bsr_matmul_f32")):
+        mats = krylov_pencil(n, scattered=kind == "block_sparse")
+        t0 = time.perf_counter()
+        op = (BandedAffineOperator(*mats, device=dev) if kind == "banded"
+              else BlockSparseAffineOperator(*mats, device=dev))
+        t_setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res, rm = greedy_basis_matfree(op, b, domain, config=cfg,
+                                       method="bicgstab")
+        torch.cuda.synchronize()
+        t_greedy = time.perf_counter() - t0
+        counts = launch_counts()
+        launches[kernel] = counts[kernel]
+        x = sweep(rm, cfg).cpu().numpy()
+        q = rm.q.cpu().numpy()
+        worst = 0.0
+        for i in (0, points // 2, points - 1):
+            t = domain[i]
+            a = sum(cp * (m + m.T) * 0.5
+                    for cp, m in zip((1.0, t, t * t), mats)).tocsc()
+            ref = spla.spsolve(a, t * b)
+            worst = max(worst, float(np.linalg.norm(q @ x[i] - ref)
+                                     / np.linalg.norm(ref)))
+        print(f"  krylov {kind} N={n} I={points}: setup_s={t_setup:.3f} "
+              f"greedy_s={t_greedy:.3f} Nr={rm.ncols} "
+              f"iterations={res.iterations} converged={res.converged} "
+              f"rel_err_vs_spsolve(3 points)={worst:.3e} "
+              f"launches={json.dumps(counts)}", flush=True)
+        check(res.converged and not res.failed_snapshot,
+              f"krylov {kind}: greedy did not converge")
+        check(worst < 1e-6, f"krylov {kind}: rel error {worst} >= 1e-6")
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched by the {kind} Krylov path")
+    return launches
 
 
 def main() -> int:
@@ -346,10 +801,19 @@ def main() -> int:
     with phase("kernels"):
         rec = kernel_phase(dev)
     with phase("slice"):
-        counts = slice_phase(dev)
+        counts, sys_, gsm_full = slice_phase(dev)
+    with phase("reduced_lu"):
+        k4 = reduced_lu_phase(dev, sys_, gsm_full)
+    with phase("matfree"):
+        k4_matfree = matfree_phase(dev)
+    with phase("general"):
+        general_phase(dev)
+    with phase("krylov"):
+        counts.update(krylov_phase(dev))
+    counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree
 
     kernels = []
-    for kname in ("panel_factor", "mm_words", "gather_rows"):
+    for kname in SOURCES:
         r = rec[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],

@@ -10,9 +10,11 @@ where the port differs.
   float32 factor on a CUDA device, else to `torch.linalg` LU — the rule the
   reference applies on its accelerator (`ops/solve.py::
   use_panel_factorization`).
-* ``"gj"`` (the blocked Gauss–Jordan inverse) and
-  ``use_pallas_reduced_sweep=True`` (the fused reduced-sweep kernel) belong
-  to later slices of the port and raise `NotImplementedError` here.
+* ``use_pallas_reduced_sweep=True`` keeps the reference's name: the
+  reduced LU sweep then runs the hand-written CUDA kernel K4
+  (`ops/kernels/reduced_sweep.py`) in place of the batched library LU.
+* ``"gj"`` (the blocked Gauss–Jordan inverse) belongs to a later slice of
+  the port and raises `NotImplementedError` here.
 * ``panel_width`` keeps the reference's multiple-of-128 rule: the panel LU
   factors the same panels as the reference, so its pivot sequences match.
 """
@@ -78,11 +80,6 @@ class MorfemConfig:
             raise NotImplementedError(
                 "factorization='gj' (blocked Gauss-Jordan inverse) is ported "
                 "in slice 4 of the PyTorch port"
-            )
-        if self.use_pallas_reduced_sweep:
-            raise NotImplementedError(
-                "use_pallas_reduced_sweep=True needs the fused reduced-sweep "
-                "Gauss-Jordan kernel, ported in slice 2 of the PyTorch port"
             )
 
     def replace(self, **kw) -> "MorfemConfig":

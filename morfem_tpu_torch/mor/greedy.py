@@ -39,6 +39,7 @@ class GreedyResult(NamedTuple):
     iterations: int  # estimator evaluations performed
     converged: bool
     err_hist: torch.Tensor  # [max_iters + 1, I]; rows ≥ iterations are zero
+    failed_snapshot: bool = False  # matrix-free greedy: a solve failed
 
 
 def max_basis_columns(m: int, config: MorfemConfig, n=None) -> int:

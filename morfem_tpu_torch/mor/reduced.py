@@ -5,7 +5,9 @@ transpose ``qᵀ`` (bilinear form), like the reference, so complex-symmetric
 FEM systems stay complex-symmetric after projection. The sweep assembles
 all I reduced systems at once ([I, K, K] = Σ c_p(t)·R_p, identity on the
 inactive diagonal) and solves them as one batched `torch.linalg` LU in the
-factor dtype with adaptive refinement in the working dtype.
+factor dtype with adaptive refinement in the working dtype; under
+``use_pallas_reduced_sweep`` the fused CUDA kernel K4 assembles and solves
+each point instead (`ops/kernels/reduced_sweep.py`).
 """
 
 from __future__ import annotations
@@ -133,10 +135,17 @@ def sweep(
 ) -> torch.Tensor:
     """Sweep the reduced model over its domain (or ts) → x [I, K, M].
 
-    (The fused reduced-sweep kernel, ``use_pallas_reduced_sweep``, belongs
-    to slice 2; `MorfemConfig` refuses it.)
+    ts (the serving re-sweep's grid) may be any array of points; it is
+    moved to the model's device. ``config.use_pallas_reduced_sweep`` takes
+    the fused kernel K4 with f64 refinement instead of the batched LU.
     """
-    if ts is None:
-        ts = rm.domain
+    ts = rm.domain if ts is None else torch.as_tensor(
+        ts, device=rm.r0.device)
+    if config.use_pallas_reduced_sweep:
+        from morfem_tpu_torch.ops.kernels.reduced_sweep import (
+            fused_reduced_sweep,
+        )
+
+        return fused_reduced_sweep(rm, ts, config)
     a, rhs = assemble_reduced(rm, ts, config)
     return solve_reduced_batch(a, rhs, config)

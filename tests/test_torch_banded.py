@@ -1,0 +1,234 @@
+"""The port's banded operators and block-tridiagonal solver against the JAX
+package (kernel K5's plain version, the blocked wide-band matvec, block
+Thomas, the banded direct solve, RCM and the shifted GMRES escalation).
+
+On the CPU the K5 wrapper runs its plain PyTorch version; the JAX kernel
+runs in interpret mode. Inputs are made with numpy from fixed seeds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from morfem_tpu.ops import block_tridiag as jbt
+from morfem_tpu.ops.pallas import banded_matvec as jbm
+
+from morfem_tpu_torch.ops import banded_matvec as tbm
+from morfem_tpu_torch.ops import block_tridiag as tbt
+from morfem_tpu_torch.ops.kernels import (
+    banded_matvec_padded,
+    launch_counts,
+    reset_launch_counts,
+)
+from morfem_tpu_torch.utils.synthetic import banded_waveguide_system
+
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: several xdist workers share the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else (
+        np.asarray(x))
+
+
+def _banded_pencil(n=300, half=6, seed=0, shift=12.0):
+    """Diagonally dominant banded pencil (a0, 0, a2) as SciPy CSR."""
+    rng = np.random.default_rng(seed)
+
+    def band(scale, s):
+        diags = [rng.normal(size=n - abs(d)) * scale / (1 + abs(d))
+                 for d in range(-half, half + 1)]
+        a = sp.diags(diags, offsets=range(-half, half + 1)).tocsr()
+        return (a + a.T) * 0.5 + sp.eye(n) * s
+
+    return band(1.0, shift), sp.csr_matrix((n, n)), band(0.3, 0.0)
+
+
+@pytest.mark.parametrize("sparse_input", [True, False])
+def test_to_banded_and_pad_band_match(sparse_input):
+    a0, _, _ = _banded_pencil(n=70, half=4, seed=1)
+    a = a0 if sparse_input else a0.toarray()
+    band_t, half_t = tbm.to_banded(a)
+    band_j, half_j = jbm.to_banded(a)
+    assert half_t == half_j == 4
+    np.testing.assert_array_equal(band_t, band_j)
+    trunc_t, _ = tbm.to_banded(a, bandwidth=2)
+    np.testing.assert_array_equal(trunc_t, jbm.to_banded(a, bandwidth=2)[0])
+    padded = tbm.pad_band(torch.from_numpy(band_t), tile=32)
+    np.testing.assert_array_equal(
+        _np(padded), np.asarray(jbm.pad_band(jnp.asarray(band_t), tile=32)))
+
+
+@pytest.mark.parametrize("n,half,m", [(1000, 6, 2), (333, 6, 1), (90, 0, 3)])
+def test_banded_matvec_plain_matches_pallas(n, half, m):
+    # N not a multiple of the reference's 256-row tile
+    rng = np.random.default_rng(n + half)
+    band = rng.standard_normal((n, 2 * half + 1)).astype(np.float32)
+    x = rng.standard_normal((n, m))
+    ref = np.asarray(jbm.banded_matvec(jnp.asarray(band), half,
+                                       jnp.asarray(x), interpret=True))
+    reset_launch_counts()
+    got = _np(tbm.banded_matvec(torch.from_numpy(band), half,
+                                torch.from_numpy(x)))
+    assert launch_counts()["banded_matvec_padded"] == 0  # CPU: plain
+    assert got.dtype == np.float32
+    # f32 sums of 2·half+1 products in the same diagonal order; the
+    # reference's compiled loop may contract products into FMAs:
+    # 1e-6 of Σ|band|·|x|
+    scale = np.abs(band).sum(axis=1).max() * np.abs(x).max()
+    assert np.abs(got - ref).max() <= 1e-6 * scale
+
+
+def test_banded_matvec_padded_takes_padded_and_plain_layouts():
+    rng = np.random.default_rng(3)
+    band = torch.from_numpy(rng.standard_normal((77, 5)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((77, 2)))
+    direct = banded_matvec_padded(band, 77, 5, 2, x)
+    padded = banded_matvec_padded(tbm.pad_band(band, 64), 77, 5, 2, x)
+    assert torch.equal(direct, padded)
+    with pytest.raises(ValueError):
+        banded_matvec_padded(band, 77, 5, 1, x)  # bw != 2·half+1
+
+
+def test_wide_band_blocked_matvec_matches():
+    # bw = 2·60+1 = 121 > WIDE_BW: both packages take the blocked form
+    rng = np.random.default_rng(5)
+    n, half = 500, 60
+    band = rng.standard_normal((n, 2 * half + 1))
+    x = rng.standard_normal((n, 2))
+    ref = np.asarray(jbm.banded_matvec_blocked(jnp.asarray(band), half,
+                                               jnp.asarray(x)))
+    got = _np(tbm.banded_matvec_blocked(torch.from_numpy(band), half,
+                                        torch.from_numpy(x)))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    ref_t = _np(tbm.banded_matvec_ref(torch.from_numpy(band), half,
+                                      torch.from_numpy(x)))
+    np.testing.assert_array_equal(ref_t, got)  # wide: ref = blocked
+    a = np.zeros((n, n))
+    for d in range(-half, half + 1):
+        rows = np.arange(max(0, -d), min(n, n - d))
+        a[rows, rows + d] = band[rows, d + half]
+    np.testing.assert_allclose(got, a @ x, atol=1e-11 * np.abs(a @ x).max())
+
+
+def test_operator_bind_routes_like_the_reference():
+    a0, a1, a2 = _banded_pencil(n=200, half=6, seed=2)
+    op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
+    op_j = jbm.BandedAffineOperator(a0, a1, a2)
+    assert (op_t.half, op_t.bw, op_t.n_addends) == (op_j.half, op_j.bw, 3)
+    np.testing.assert_array_equal(_np(op_t.bands_w), np.asarray(op_j.bands_w))
+    c = np.array([1.0, 0.0, 2.3])
+    x = np.random.default_rng(0).standard_normal((200, 2))
+    fast_t = _np(op_t.bind(torch.from_numpy(c))(torch.from_numpy(x)))
+    fast_j = np.asarray(op_j.bind(jnp.asarray(c))(jnp.asarray(x)))
+    assert fast_t.dtype == np.float64  # f32 kernel, cast back to x's dtype
+    assert np.abs(fast_t - fast_j).max() <= 1e-5 * np.abs(fast_j).max()
+    prec_t = _np(op_t.bind_precise(torch.from_numpy(c))(torch.from_numpy(x)))
+    dense = (a0 + 2.3 * a2).toarray()
+    np.testing.assert_allclose(prec_t, dense @ x, rtol=1e-13, atol=1e-12)
+    np.testing.assert_allclose(_np(op_t.diagonal(torch.from_numpy(c))),
+                               np.diag(dense), rtol=1e-15)
+    np.testing.assert_allclose(_np(op_t.apply_addend(2, torch.from_numpy(x))),
+                               a2.toarray() @ x, rtol=1e-13, atol=1e-13)
+
+
+def test_band_to_blocks_and_block_thomas_match():
+    a0, a1, a2 = _banded_pencil(n=300, half=6, seed=3)
+    op = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
+    c = torch.tensor([1.0, 0.0, 1.7], dtype=torch.float64)
+    band = tbm.combine_addends(c, op.bands_w)
+    l, d, u = tbt.band_to_blocks(band, op.half, 128)
+    lj, dj, uj = jbt.band_to_blocks(jnp.asarray(_np(band)), op.half, 128)
+    for a, b in ((l, lj), (d, dj), (u, uj)):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    fac = tbt.block_tridiag_factor(l, d, u, op.n)
+    fac_j = jbt.block_tridiag_factor(lj, dj, uj, op.n)
+    rhs = np.random.default_rng(1).standard_normal((300, 2))
+    x = _np(tbt.block_tridiag_apply(fac, torch.from_numpy(rhs)))
+    xj = np.asarray(jbt.block_tridiag_apply(fac_j, jnp.asarray(rhs)))
+    assert x.dtype == np.float32
+    # f32 factors: both are f32 solves of the same system (cond ≈ 10)
+    assert np.abs(x - xj).max() <= 1e-5 * np.abs(xj).max()
+    dense = (a0 + 1.7 * a2).toarray()
+    ref = np.linalg.solve(dense, rhs)
+    assert np.abs(x - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_banded_direct_solve_matches():
+    a0, a1, a2 = _banded_pencil(n=300, half=6, seed=4, shift=2.0)
+    op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
+    op_j = jbm.BandedAffineOperator(a0, a1, a2)
+    c = np.array([1.0, 0.0, -1.1])
+    rhs = np.random.default_rng(2).standard_normal((300, 2))
+    x, relres, it = tbt.banded_direct_solve(op_t, torch.from_numpy(c),
+                                            torch.from_numpy(rhs))
+    xj, relres_j, it_j = jbt.banded_direct_solve(op_j, jnp.asarray(c),
+                                                 jnp.asarray(rhs))
+    ref = np.linalg.solve((a0 - 1.1 * a2).toarray(), rhs)
+    assert np.abs(_np(x) - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert np.abs(_np(x) - np.asarray(xj)).max() <= 1e-12 * np.abs(ref).max()
+    assert float(relres.max()) < 1e-13
+    # the refinement takes the same number of steps (±1: f32 factors)
+    assert abs(it - int(it_j)) <= 1
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        tbt.banded_direct_solve(op_t, torch.from_numpy(c),
+                                torch.from_numpy(rhs), factorization="cr")
+
+
+def test_banded_via_rcm_gives_the_reference_permutation():
+    n = 400
+    c, t, wp = banded_waveguide_system(n, half=5, seed=0)
+    scram = np.random.default_rng(3).permutation(n)
+    cs = c.tocsr()[scram][:, scram]
+    ts = t.tocsr()[scram][:, scram]
+    zero = sp.csr_matrix((n, n))
+    op_t, perm_t = tbt.banded_via_rcm(cs, zero, ts, device=CPU)
+    op_j, perm_j = jbt.banded_via_rcm(cs, zero, ts)
+    np.testing.assert_array_equal(_np(perm_t), np.asarray(perm_j))
+    assert op_t.half == op_j.half <= 10
+    np.testing.assert_array_equal(_np(op_t.bands_w), np.asarray(op_j.bands_w))
+    with pytest.raises(tbt.BandwidthError):
+        tbt.banded_via_rcm(cs, zero, ts, max_half=2, device=CPU)
+    # the one-call form un-permutes
+    cc = np.array([1.0, 0.0, -2.0])
+    rhs = wp
+    x, relres, _ = tbt.rcm_direct_solve(cs, zero, ts, cc, rhs, device=CPU)
+    a = (cs - 2.0 * ts).toarray()
+    a = (a + a.T) / 2
+    ref = np.linalg.solve(a, rhs)
+    assert np.abs(_np(x) - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+def test_shifted_gmres_solve_matches():
+    # an indefinite banded pencil: the σ-shifted block factorization
+    # preconditions exact GMRES
+    a0, a1, a2 = _banded_pencil(n=256, half=5, seed=6, shift=0.5)
+    op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
+    op_j = jbm.BandedAffineOperator(a0, a1, a2)
+    c = np.array([1.0, 0.0, 1.0])
+    rhs = np.random.default_rng(4).standard_normal((256, 2))
+    x, relres = tbt.shifted_gmres_solve(op_t, torch.from_numpy(c),
+                                        torch.from_numpy(rhs), maxiter=10)
+    xj, relres_j = jbt.shifted_gmres_solve(op_j, jnp.asarray(c),
+                                           jnp.asarray(rhs), maxiter=10)
+    ref = np.linalg.solve((a0 + a2).toarray(), rhs)
+    assert float(relres.max()) < 1e-10
+    assert np.abs(_np(x) - ref).max() <= 1e-8 * np.abs(ref).max()
+    assert np.abs(_np(x) - np.asarray(xj)).max() <= 1e-8 * np.abs(ref).max()
+    # the preconditioner itself: Re((A − iσs)⁻¹ r) against a dense solve
+    prec, _ = tbt.shifted_block_precond(op_t, torch.from_numpy(c), sigma=1e-2)
+    a = (a0 + a2).toarray()
+    s = 1e-2 * np.abs(np.diag(a)).max()
+    want = np.linalg.solve(a - 1j * s * np.eye(256), rhs).real
+    got = _np(prec(torch.from_numpy(rhs)))
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

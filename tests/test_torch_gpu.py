@@ -81,3 +81,106 @@ def test_gather_rows_kernel(cuda):
     idx = _t(np.stack([rng.permutation(256)[:128] for _ in range(2)])
              .astype(np.int32), cuda)
     assert torch.equal(gather_rows(view, idx), gather_rows_plain(view, idx))
+
+
+@pytest.mark.parametrize("k,i_pts,m", [(12, 37, 2), (84, 100, 2), (37, 5, 3)])
+def test_reduced_sweep_kernel(cuda, k, i_pts, m):
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve,
+        gauss_jordan_sweep_solve_plain,
+    )
+
+    rng = np.random.default_rng(k + i_pts)
+    rs = [_t(rng.standard_normal((k, k)), cuda) for _ in range(3)]
+    rs[0] = rs[0] + 3 * k * torch.eye(k, dtype=torch.float64, device=cuda)
+    c = _t(rng.uniform(0.5, 2.0, (i_pts, 3)), cuda)
+    rhs = _t(rng.standard_normal((i_pts, k, m)), cuda)
+    inactive = torch.zeros(k, dtype=torch.float64, device=cuda)
+    inactive[k - 2:] = 1.0  # two masked columns
+    rhs[:, k - 2:] = 0.0
+    for sym in (True, False):
+        reset_launch_counts()
+        got = gauss_jordan_sweep_solve(*rs, c, rhs, inactive, symmetrize=sym)
+        ref = gauss_jordan_sweep_solve_plain(*rs, c, rhs, inactive,
+                                             symmetrize=sym)
+        torch.cuda.synchronize()
+        assert launch_counts()["gauss_jordan_sweep_solve"] == 1
+        # the same pivots and the same roundings, step for step
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("n,half,m", [(1000, 6, 2), (777, 0, 1), (300, 47, 3)])
+def test_banded_matvec_kernel(cuda, n, half, m):
+    from morfem_tpu_torch.ops.kernels import (
+        banded_matvec_padded,
+        banded_matvec_padded_plain,
+    )
+
+    rng = np.random.default_rng(n + half)
+    bw = 2 * half + 1
+    band = _t(rng.standard_normal((n, bw)).astype(np.float32), cuda)
+    padded = torch.zeros((1024, 128), dtype=torch.float32, device=cuda)
+    padded[:n, :bw] = band
+    x = _t(rng.standard_normal((n, m)), cuda)
+    reset_launch_counts()
+    for b in (band, padded):
+        got = banded_matvec_padded(b, n, bw, half, x)
+        ref = banded_matvec_padded_plain(b, n, bw, half, x)
+        # diagonals accumulated in one order, products and sums rounded
+        # alike: bit for bit
+        assert torch.equal(got, ref)
+    assert launch_counts()["banded_matvec_padded"] == 2
+
+
+@pytest.mark.parametrize("m", [1, 2, 11])
+def test_block_sparse_kernel(cuda, m):
+    import scipy.sparse as sp
+
+    from morfem_tpu_torch.ops.block_sparse import bsr_from_scipy
+    from morfem_tpu_torch.ops.kernels import (
+        bsr_matmul_f32,
+        bsr_matmul_f32_plain,
+    )
+
+    rng = np.random.default_rng(m)
+    n = 700
+    a = sp.random(n, n, density=0.01, random_state=m, format="csr")
+    a = a + sp.eye(n)
+    a = a.tolil()
+    a[64:96, :] = 0.0  # an empty block row (a zero filler block is stored)
+    vals, brows, bcols, nbr, nbc = bsr_from_scipy([a.tocsr()], n)
+    vals2d = _t(vals[0].reshape(-1, 128).astype(np.float32), cuda)
+    brows, bcols = _t(brows, cuda), _t(bcols, cuda)
+    x = _t(rng.standard_normal((n, m)), cuda)
+    reset_launch_counts()
+    got = bsr_matmul_f32(vals2d, brows, bcols, nbr, nbc, n, 32, 128, x)
+    ref = bsr_matmul_f32_plain(vals2d, brows, bcols, nbr, nbc, n, 32, 128, x)
+    torch.cuda.synchronize()
+    assert launch_counts()["bsr_matmul_f32"] == -(-m // 8)
+    # f32 sums in another order than the batched product: 1e-5 of Σ|a||x|
+    scale = bsr_matmul_f32_plain(vals2d.abs(), brows, bcols, nbr, nbc, n,
+                                 32, 128, x.abs()).max()
+    assert (got - ref).abs().max() <= 1e-5 * scale
+    assert float(got[64:96].abs().max()) == 0.0
+    got1 = bsr_matmul_f32(vals2d, brows, bcols, nbr, nbc, n, 32, 128, x[:, 0])
+    assert got1.shape == (n,)
+
+
+def test_reduced_sweep_kernel_pivot_tie(cuda):
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve,
+        gauss_jordan_sweep_solve_plain,
+    )
+
+    # |3| twice in column 0 (rows 0 and 1): the lowest row wins, in the
+    # kernel as in the plain version (tests/test_torch_reduced_sweep.py
+    # pins the plain version's choice against the JAX kernel)
+    a = _t(np.array([[3.0, 8, 1, 1], [-3, 1, 5, -6], [-2, 0, 5, 0],
+                     [0, -8, 0, 9]]), cuda)
+    zero = torch.zeros_like(a)
+    b = _t(np.array([-1.0, -9, 1, 5])[None, :, None], cuda)
+    args = (a, zero, zero, _t(np.array([[1.0, 0.0, 0.0]]), cuda), b,
+            torch.zeros(4, dtype=torch.float64, device=cuda))
+    got = gauss_jordan_sweep_solve(*args, symmetrize=False)
+    ref = gauss_jordan_sweep_solve_plain(*args, symmetrize=False)
+    assert torch.equal(got, ref)

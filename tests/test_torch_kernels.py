@@ -15,7 +15,10 @@ from morfem_tpu.ops.pallas.fused_mm import mm_words as jax_mm_words
 from morfem_tpu.ops.pallas.panel_factor import panel_factor as jax_panel_factor
 from morfem_tpu.ops.pallas.row_gather import gather_rows as jax_gather_rows
 from morfem_tpu_torch.ops.kernels import (
+    banded_matvec_padded,
+    bsr_matmul_f32,
     gather_rows,
+    gauss_jordan_sweep_solve,
     launch_counts,
     mm_words,
     panel_factor,
@@ -146,6 +149,15 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     panel_factor(torch.eye(8, 128)[None].contiguous(), torch.ones((1, 128)))
     mm_words(x, x)
     gather_rows(x, torch.zeros((1, 128), dtype=torch.int32))
+    eye = torch.eye(4)
+    gauss_jordan_sweep_solve(eye, eye, eye, torch.ones((2, 3)),
+                             torch.ones((2, 4, 1)), torch.zeros(4))
+    banded_matvec_padded(torch.ones((5, 3)), 5, 3, 1, torch.ones((5, 2)))
+    bsr_matmul_f32(torch.ones((32, 128)), torch.zeros(1, dtype=torch.int32),
+                   torch.zeros(1, dtype=torch.int32), 1, 1, 20, 32, 128,
+                   torch.ones((20, 2)))
     assert launch_counts() == {
         "panel_factor": 0, "mm_words": 0, "gather_rows": 0,
+        "gauss_jordan_sweep_solve": 0, "banded_matvec_padded": 0,
+        "bsr_matmul_f32": 0,
     }

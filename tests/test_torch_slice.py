@@ -104,11 +104,17 @@ def test_config_rejects_what_the_reference_rejects(bad):
 
 
 @pytest.mark.parametrize(
-    "later", [dict(use_pallas_reduced_sweep=True), dict(factorization="gj")]
+    "later", [dict(factorization="gj"),
+              dict(factorization="gj", use_pallas_reduced_sweep=True)]
 )
 def test_config_names_later_slices(later):
     with pytest.raises(NotImplementedError, match="slice"):
         pt.MorfemConfig(**later)
+
+
+def test_config_accepts_the_fused_reduced_sweep():
+    assert pt.MorfemConfig(use_pallas_reduced_sweep=True) \
+        .use_pallas_reduced_sweep
 
 
 def test_entry_points_default_to_cuda():
@@ -125,8 +131,12 @@ def test_unported_inputs_name_their_slice():
     import scipy.sparse as sp
 
     domain, k, c, m_mat, b = _pencil()
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        pt.morfem(domain, sp.csc_array(k), c, m_mat, b, device=CPU)
+    # real SciPy-sparse input is ported (matrix-free above dense_cutoff,
+    # densified below it); complex input, dense or sparse, is slice 3's
+    cfg = pt.MorfemConfig(dense_cutoff=8)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        pt.morfem(domain, sp.csc_array(k) * (1 + 1j), c, m_mat, b,
+                  config=cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="slice 3"):
         pt.morfem(domain, k + 0j, c, m_mat, b, device=CPU)
 
