@@ -6,16 +6,20 @@
 Phases, each printing one progress line with its seconds and numbers:
 
   1. device  — the card's name, and its name and power limit from nvidia-smi;
-  2. build   — the one-`nvcc` build of the CUDA kernels, with the registers,
+  2. build   — the `nvcc` build of the CUDA kernels (one per source, run
+               together, and a link), with the registers,
                shared memory and spills that ptxas reports per kernel;
   3. kernels — each kernel (K1 panel_factor, K2 mm_words, K3 gather_rows)
                against its plain PyTorch version on the card, at the panel
                LU's shapes on the waveguide, with kernel, plain, library and
-               bound times;
+               bound times (K1's library call: torch.linalg.lu_factor on the
+               block-pivot blocks; K2's: baddbmm / bmm);
   4. slice   — the waveguide (N=3411, M=2, I=100, bundled data): the MOR GSM
                (greedy + spectral sweep) against the full-order GSM (panel-LU
-               sweep through K1-K3), f64 spot checks of full-order solutions,
-               and each kernel's launch count over that run;
+               sweep through K1-K3, with its block-pivot escalations and
+               refinement iterations per chunk), f64 spot checks of
+               full-order solutions, and each kernel's launch count over that
+               run;
   5. reduced_lu — the same waveguide through morfem() with the reduced LU
                sweep on K4 (sweep_method="lu", use_pallas_reduced_sweep=True):
                its GSM against the full-order GSM, then the serving re-sweep
@@ -26,7 +30,9 @@ Phases, each printing one progress line with its seconds and numbers:
                K4 LU sweep, against banded direct oracle solves at 7 points;
   7. general — the same pencil at N=9,409 forced onto the general-sparsity
                route (band_max_half=128: truncated band + exact-operator
-               GMRES), same oracle check;
+               GMRES), same oracle check; then the same pencil plus weak
+               scattered couplings, so that the preconditioner drops mass
+               outside the band, against SciPy's spsolve at 3 points;
   8. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
                (K5) and on a block-sparse operator (K6) at N=34,225, checked
                against scipy.sparse.linalg.spsolve at 3 points.
@@ -57,7 +63,9 @@ import warnings
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
           "reduced_lu": 300, "matfree": 600, "general": 600, "krylov": 600}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
+PARENT_FULL_ORDER_S = 2.33  # the full-order sweep before K1/K2's redesign
 REPLACES = {
     "panel_factor": "morfem_tpu/ops/pallas/panel_factor.py:60",
     "mm_words": "morfem_tpu/ops/pallas/fused_mm.py:74",
@@ -123,10 +131,11 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes/bandwidth and flops/peak."""
+def bound(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes/bandwidth and flops/peak
+    (FP32 on the CUDA cores unless another peak is given)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -176,6 +185,8 @@ def kernel_phase(dev):
         gather_rows, gather_rows_plain, mm_words, mm_words_plain,
         panel_factor, panel_factor_plain,
     )
+    from morfem_tpu_torch.ops.kernels.fused_mm import mm_words_split_plain
+    from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}  # kernel -> [(principal, record)]
@@ -183,39 +194,59 @@ def kernel_phase(dev):
     def keep(name, principal, **r):
         results.setdefault(name, []).append((principal, r))
 
-    # K1: full-pivot panel [8, 128, 3456] and block-pivot [8, 384, 384];
-    # the relative tolerance 1e-5 covers rounding-order differences (the
-    # kernel and the plain version round each product and sum alike, so in
-    # practice they agree bit for bit); pivots and availability exactly
-    for (g, p, npl), principal in (((8, 128, 3456), False),
-                                   ((8, 384, 384), True)):
+    # K1: the block-pivot diagonal blocks [8, 384, 384] without C̃ (the
+    # path's call; the cluster kernel), the same with C̃ (cluster kernel),
+    # and the full-pivot panel [8, 128, 3456] with C̃ (one-CTA kernel).
+    # The kernels round every update as the plain version does, so they
+    # agree bit for bit in practice; the gate is 1e-5 of the largest entry.
+    # Pivots and availability exactly.
+    for (g, p, npl), want_ct, principal in (((8, 384, 384), False, True),
+                                            ((8, 384, 384), True, False),
+                                            ((8, 128, 3456), True, False)):
         pt = torch.randn((g, p, npl), generator=gen, device=dev)
         av = torch.ones((g, npl), device=dev)
-        out_k = panel_factor(pt, av)
-        out_p = panel_factor_plain(pt, av)
-        check(torch.equal(out_k[2], out_p[2]), f"K1 pivots differ at {pt.shape}")
-        check(torch.equal(out_k[3], out_p[3]), f"K1 avail differs at {pt.shape}")
-        err = max(float((out_k[i] - out_p[i]).abs().max()) for i in (0, 1))
-        scale = max(float(out_p[i].abs().max()) for i in (0, 1))
-        check(err <= 1e-5 * scale, f"K1 error {err} at {pt.shape}")
-        ms = cuda_ms(lambda: panel_factor(pt, av), 5)
-        plain_ms = cuda_ms(lambda: panel_factor_plain(pt, av), 2)
-        # work this data needs: step j updates P-1 rows over the lanes still
-        # available and not the pivot (npl - j - 1 of them here)
-        flops = g * sum(2 * (p - 1) * (npl - j - 1) for j in range(p))
-        nbytes = 4 * (3 * g * p * npl + 2 * g * npl + g * p)
+        out_k = panel_factor(pt, av, want_ct=want_ct)
+        out_p = panel_factor_plain(pt, av, want_ct=want_ct)
+        what = f"{list(pt.shape)} want_ct={want_ct}"
+        check(torch.equal(out_k[2], out_p[2]), f"K1 pivots differ at {what}")
+        check(torch.equal(out_k[3], out_p[3]), f"K1 avail differs at {what}")
+        outs = (0, 1) if want_ct else (0,)
+        err = max(float((out_k[i] - out_p[i]).abs().max()) for i in outs)
+        scale = max(float(out_p[i].abs().max()) for i in outs)
+        check(err <= 1e-5 * scale, f"K1 error {err} at {what}")
+        kind = "cluster" if uses_cluster_kernel(p, npl, want_ct) else "one-CTA"
+        ms = cuda_ms(lambda: panel_factor(pt, av, want_ct=want_ct), 5)
+        plain_ms = cuda_ms(lambda: panel_factor_plain(pt, av, want_ct), 2)
+        lib_ms = None
+        if p == npl and not want_ct:
+            # all lanes available, no C̃: exactly LU with partial pivoting
+            # of the [P, P] block, as torch.linalg.lu_factor computes it
+            a_blk = pt.transpose(1, 2).contiguous()
+            lib_ms = cuda_ms(lambda: torch.linalg.lu_factor(a_blk), 5)
+        # work this data needs: step j updates the later rows (and, with
+        # C̃, the earlier coefficient rows) over the lanes still available
+        # and not the pivot (npl - j - 1 of them here)
+        rows = [(p - 1) if want_ct else (p - j - 1) for j in range(p)]
+        flops = g * sum(2 * rows[j] * (npl - j - 1) for j in range(p))
+        nbytes = 4 * ((2 + want_ct) * g * p * npl + 2 * g * npl + g * p)
         b_ms, b_by = bound(nbytes, flops)
-        print(f"  K1 panel_factor {list(pt.shape)}: max_abs_err={err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms=None "
-              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f} (lu_factor)"
+        print(f"  K1 panel_factor {what} ({kind} kernel): max_abs_err={err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_txt} bound_ms={b_ms:.5f} ({b_by})",
+              flush=True)
         keep("panel_factor", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=None, shape=list(pt.shape))
+             library_ms=lib_ms, shape=list(pt.shape))
 
     # K2: trailing updates of the block-pivot factor (S = A22 - L21·U12),
     # the U12 = L11⁻¹·A12 product, and the full-pivot trailing update with
-    # the transposed coefficient view; FP32 accumulation over K ≤ 384 in
-    # another order than cuBLAS: tolerance 1e-5 of the largest |output|
+    # the transposed coefficient view. Held against the FP32 product
+    # (mm_words_plain) and the six-product word split (the kernel's own
+    # arithmetic): exact word products summed in f32 in another order,
+    # tolerance 1e-5 of the largest |output|. The bound is the least time
+    # of an f32-true product on this card: six bf16 tensor-core passes
+    # (fp32_bound_ms: the same work at the FP32 CUDA-core rate).
     cases = (
         ((8, 3072, 384, 3072), True, -1, False, True),
         ((8, 384, 384, 3072), False, 1, False, False),
@@ -230,9 +261,24 @@ def kernel_phase(dev):
         t = torch.randn((g, m, n), generator=gen, device=dev) if with_t else None
         out_k = mm_words(c, r, t, sign=sign)
         out_p = mm_words_plain(c, r, t, sign=sign)
+        out_s = mm_words_split_plain(c, r, t, sign=sign)
         err = float((out_k - out_p).abs().max())
-        check(err <= 1e-5 * float(out_p.abs().max()),
-              f"K2 error {err} at {(g, m, k, n)}")
+        err_split = float((out_k - out_s).abs().max())
+        top = float(out_p.abs().max())
+        check(err <= 1e-5 * top, f"K2 error {err} at {(g, m, k, n)}")
+        check(err_split <= 1e-5 * top,
+              f"K2 error vs the word split {err_split} at {(g, m, k, n)}")
+        # f32-true: no farther from the exact (f64) result than the FP32
+        # product (a drifting tensor-core accumulation fails this)
+        exact = sign * (c.double() @ r.double())
+        if t is not None:
+            exact = exact + t.double()
+        mean_k = float((out_k.double() - exact).abs().mean())
+        mean_p = float((out_p.double() - exact).abs().mean())
+        check(mean_k <= mean_p,
+              f"K2 mean error vs f64 {mean_k} > FP32's {mean_p} at "
+              f"{(g, m, k, n)}")
+        del exact
         ms = cuda_ms(lambda: mm_words(c, r, t, sign=sign))
         plain_ms = cuda_ms(lambda: mm_words_plain(c, r, t, sign=sign))
         if t is not None:
@@ -241,12 +287,16 @@ def kernel_phase(dev):
             lib_ms = cuda_ms(lambda: torch.bmm(c, r))
         flops = 2 * g * m * n * k
         nbytes = 4 * g * (m * k + k * n + m * n * (2 if with_t else 1))
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, 6 * flops, H100_BF16_FLOPS)
+        fp32_ms, _ = bound(nbytes, flops)
         print(f"  K2 mm_words [{g},{m},{k}]@[{g},{k},{n}] t={with_t} "
-              f"sign={sign}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+              f"sign={sign}: max_abs_err={err:.3e} "
+              f"err_vs_word_split={err_split:.3e} mean_err_vs_f64="
+              f"{mean_k:.3e} (FP32 product: {mean_p:.3e}) kernel_ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}) "
-              f"tflops={flops / ms / 1e9:.2f}", flush=True)
+              f"bound_ms={b_ms:.5f} ({b_by}, six bf16 passes) "
+              f"fp32_bound_ms={fp32_ms:.5f} "
+              f"f32_true_tflops={flops / ms / 1e9:.2f}", flush=True)
         keep("mm_words", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib_ms, shape=[g, m, k, n])
@@ -471,6 +521,9 @@ def slice_phase(dev, n_expected=3411, points=100):
     )
     from morfem_tpu_torch.ops.assembly import assemble_at
     from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from morfem_tpu_torch.ops.panel_lu import (
+        reset_sweep_counters, solve_sweep_panel,
+    )
     from morfem_tpu_torch.ops.solve import solve_sweep
 
     data = load_waveguide_data(n_fallback=n_expected)
@@ -484,11 +537,15 @@ def slice_phase(dev, n_expected=3411, points=100):
     t0 = time.perf_counter()
     gsm_mor, rm, greedy = mor_gsm(sys_, cfg, timer)
     t_mor = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_sweep_counters()
     t0 = time.perf_counter()
     gsm_full = full_order_gsm(sys_, cfg, timer)
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0
     counts = launch_counts()
+    escalations = solve_sweep_panel.escalations
+    chunk_its = list(solve_sweep_panel.chunk_iterations)
     check(bool(torch.isfinite(gsm_mor).all() and torch.isfinite(gsm_full).all()),
           "non-finite GSM")
     check(tuple(gsm_full.shape) == (points, 2, 2),
@@ -503,7 +560,13 @@ def slice_phase(dev, n_expected=3411, points=100):
           f"max_point_fro={err_fro:.3e}", flush=True)
     for name, t in timer.times.items():
         print(f"  slice phase '{name}': {t:.3f} s", flush=True)
+    print(f"  slice full-order sweep: full_s={t_full:.3f} (parent "
+          f"{PARENT_FULL_ORDER_S} s, PERF.md) block_pivot_escalations="
+          f"{escalations} refinement_iterations_per_chunk={chunk_its}",
+          flush=True)
     check(err_max < 1e-8, f"max|S_mor - S_full| = {err_max} >= 1e-8")
+    check(escalations == 0,
+          f"{escalations} chunks escalated to the full-pivot factor")
 
     # f64 spot checks of the panel-LU sweep at three grid points
     ts3 = sys_.domain[[0, points // 2, points - 1]]
@@ -679,7 +742,8 @@ def matfree_phase(dev, p=P_34K, points=100):
 def general_phase(dev, p=GENERAL_P, points=100):
     """The 2-D waveguide pencil at N=p² forced onto the general-sparsity
     route (band_max_half=128 < the RCM half-bandwidth: BandwidthError →
-    truncated band + exact-operator GMRES), same oracle check."""
+    truncated band + exact-operator GMRES), same oracle check; then with a
+    scattered remainder outside the band (dropped mass > 0)."""
     import numpy as np
 
     import torch
@@ -710,6 +774,53 @@ def general_phase(dev, p=GENERAL_P, points=100):
     print(f"  general: rel_err_vs_banded_oracle(7 points)={rel:.3e}",
           flush=True)
     check(rel < 1e-7, f"general: rel error vs oracle {rel} >= 1e-7")
+
+    # With mass outside the band. On the bare pencil a band below the
+    # natural half-bandwidth (p+1) drops >= 12 % of the mass and GMRES
+    # stalls, in the JAX package exactly as here (tools/general_route_
+    # stall.py, PERF.md). The route is for patterns that leave only a
+    # small scattered remainder outside the band, so: the same pencil plus
+    # weak scattered couplings, against SciPy's spsolve at 3 points.
+    import scipy.sparse.linalg as spla
+
+    mats, wp = scattered_waveguide_2d(p)
+    _, _, _, dropped = truncated_band_via_rcm(
+        *mats, band_half=cfg.band_max_half, device="cpu")
+    print(f"  general_scattered: out-of-band mass dropped by the "
+          f"preconditioner {dropped:.3e}", flush=True)
+    check(dropped > 0, "general_scattered: nothing lies outside the band")
+    x, q, _ = _morfem_run(dev, "general_scattered", mats, wp, freq, cfg)
+    worst = 0.0
+    for i in (0, points // 2, points - 1):
+        f = float(freq[i])
+        a = sum(cp * (mp + mp.T) * 0.5
+                for cp, mp in zip((1.0, f, f * f), mats)).tocsc()
+        ref = spla.spsolve(a, f * wp)
+        rec = (q @ x[i]).cpu().numpy()
+        worst = max(worst, float(np.linalg.norm(rec - ref)
+                                 / np.linalg.norm(ref)))
+    print(f"  general_scattered: rel_err_vs_spsolve(3 points)={worst:.3e}",
+          flush=True)
+    check(worst < 1e-7, f"general_scattered: rel error {worst} >= 1e-7")
+
+
+def scattered_waveguide_2d(p, nfar_frac=0.01, amp=0.05, seed=5):
+    """The 2-D waveguide pencil (C, 0, Γ) plus weak scattered symmetric
+    couplings in C: RCM cannot band it, the natural ordering keeps the grid
+    within p+1 of the diagonal, and only the scattered remainder falls
+    outside the truncated band."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    c, _, gamma, wp = _waveguide_2d(p)
+    n = p * p
+    rng = np.random.default_rng(seed)
+    nfar = int(n * nfar_frac)
+    far = sp.coo_matrix(
+        (amp * abs(c).max() * rng.standard_normal(nfar),
+         (rng.integers(0, n, nfar), rng.integers(0, n, nfar))), shape=(n, n))
+    c = (c + far + far.T).tocsr()
+    return (c, 0.0 * c, gamma), np.asarray(wp)
 
 
 def krylov_phase(dev, points=100):

@@ -39,8 +39,26 @@ from morfem_tpu_torch.utils.timing import PhaseTimer
 
 
 def _warn_if_unconverged(result: GreedyResult) -> None:
-    """Warn when the greedy loop stopped short of its error threshold."""
+    """Warn when the greedy loop stopped short of its error threshold.
+
+    A failed snapshot solve (matrix-free greedy, ``failed_snapshot``) gets
+    its own warning: more iterations cannot help there.
+    """
     if result.converged:
+        return
+    if result.failed_snapshot:
+        warnings.warn(
+            "morfem(): greedy basis construction ABORTED after "
+            f"{result.iterations} estimator evaluations because a "
+            "seed/snapshot solve did not reach an acceptable residual "
+            "(see the preceding snapshot-solver warnings for the failing "
+            "point and residual). The returned reduced model is the best "
+            "basis found; raising config.max_greedy_iterations will NOT "
+            "help — improve the snapshot solver instead (e.g. "
+            "config.band_max_half, Krylov settings, or conditioning of "
+            "the system near the failing point).",
+            stacklevel=3,
+        )
         return
     warnings.warn(
         "morfem(): greedy basis construction stopped after "

@@ -1,21 +1,23 @@
-"""Build and load the port's CUDA kernels: one `nvcc`, one shared library.
+"""Build and load the port's CUDA kernels: `nvcc`, one shared library.
 
-All sources in ``morfem_tpu_torch/csrc/*.cu`` are compiled by one command
+Each source in ``morfem_tpu_torch/csrc/*.cu`` is compiled by its own
+`nvcc`, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libmorfem_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
 
-into ``morfem_tpu_torch/_build/<hash>/``, where the hash covers the
-sources and the flags, and the library is loaded with `ctypes`. Each kernel
-has an ``extern "C"`` launcher taking raw pointers, sizes and the CUDA
-stream, returning ``cudaGetLastError()``. No PyTorch headers are compiled,
-so the build takes seconds, not minutes.
+and the objects are linked by one more (``nvcc -shared``) into
+``morfem_tpu_torch/_build/<hash>/libmorfem_kernels.so``, where the hash
+covers the sources and the flags; the library is loaded with `ctypes`.
+Each kernel has an ``extern "C"`` launcher taking raw pointers, sizes and
+the CUDA stream, returning ``cudaGetLastError()``. No PyTorch headers are
+compiled, so the build takes seconds, not minutes.
 
 The build happens at first use (never at import: the CPU tests import
 every module and this machine may have no `nvcc`). It takes no lock: the
-library is written under a unique name and renamed into place, so
-concurrent builders cannot leave a half-written library behind. A failed
-build raises with `nvcc`'s output.
+objects and the library are written under unique names and the library
+is renamed into place, so concurrent builders cannot leave a half-written
+library behind. A failed build raises with `nvcc`'s output.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libmorfem_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH_FLAGS + [
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _c_void_p, _c_int, _c_int64, _c_float = (
@@ -42,9 +44,13 @@ _c_void_p, _c_int, _c_int64, _c_float = (
 )
 # argtypes of every launcher: pointers and the stream as c_void_p (a plain
 # int would be cut to 32 bits), sizes as c_int / c_int64
+_PANEL = [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p]
 _SIGNATURES = {
-    "morfem_panel_factor": [_c_void_p] * 6 + [_c_int] * 3 + [_c_void_p],
-    "morfem_mm_f32": [_c_void_p] * 4 + [_c_int] * 4 + [_c_int64] * 9
+    "morfem_panel_factor_cluster": _PANEL,
+    "morfem_panel_factor_cta": _PANEL,
+    "morfem_split_words": [_c_void_p] * 2 + [_c_int] * 4 + [_c_int64] * 3
+    + [_c_void_p],
+    "morfem_mm_words": [_c_void_p] * 4 + [_c_int] * 4 + [_c_int64] * 3
     + [_c_float, _c_void_p],
     "morfem_gather_rows": [_c_void_p] * 3 + [_c_int] * 4 + [_c_int64] * 2
     + [_c_void_p],
@@ -121,15 +127,39 @@ def load() -> KernelLibrary:
     t0 = time.perf_counter()
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [nvcc] + FLAGS + ["-o", str(tmp)] + [str(p) for p in _sources()]
+        tag = f"{os.getpid()}"
+        objs, procs = [], []
+        for src in _sources():
+            obj = out_dir / f".{src.stem}.{tag}.o"
+            cmd = [nvcc] + FLAGS + ["-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                for _, other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(
+                    "nvcc failed to build the morfem_tpu_torch kernels:\n"
+                    + " ".join(cmd) + "\n" + out
+                )
+        tmp = out_dir / f".{LIB_NAME}.{tag}.tmp"
+        cmd = [nvcc] + ARCH_FLAGS + ["-shared", "-o", str(tmp)] + [
+            str(o) for o in objs]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(
-                "nvcc failed to build the morfem_tpu_torch kernels:\n"
+                "nvcc failed to link the morfem_tpu_torch kernels:\n"
                 + " ".join(cmd) + "\n" + proc.stdout + proc.stderr
             )
-        log_path.write_text(proc.stdout + proc.stderr)
+        for o in objs:
+            o.unlink()
+        log_path.write_text("".join(logs))
         os.replace(tmp, lib_path)
     build_seconds = time.perf_counter() - t0
     log = log_path.read_text() if log_path.exists() else ""

@@ -39,8 +39,9 @@ _TRAILS = ("f32x6", "f32x3")
 def _mm_true(c, r, t=None, sign=1):
     """f32-true c@r (+t, ×sign), output written once (kernel K2).
 
-    Both of the reference's trails map here: on the card every FP32
-    product is f32-true, so "f32x3" is no cheaper.
+    Both of the reference's trails map here: K2 is the reference's
+    3-word bf16 split (six products), which the TPU ran for "f32x6"; its
+    "f32x3" (three products, bf16x3) has no separate kernel on the card.
     """
     return mm_words(c, r, t, sign=sign)
 
@@ -54,7 +55,7 @@ def full_pivot_panel(n: int, panel: int) -> int:
 
     The reference clamps wide panels back to 128 where its Pallas kernel's
     five P×Npl f32 buffers would overflow the TPU's 16 MB VMEM. The card
-    has no such limit (K1 keeps the panel in device memory); the clamp is
+    has no such limit (K1's one-CTA kernel takes any width); the clamp is
     kept for parity, so that both packages factor the same panels and pick
     the same pivots.
     """
@@ -199,7 +200,8 @@ def panel_lu_factor_block(
     for k in range(nb):
         lo, hi = k * panel, (k + 1) * panel
         d_t = rest[:, :panel, :panel].transpose(1, 2).contiguous()
-        fac_t, _c, piv, _av = panel_factor(d_t, ones_avail)
+        # the block-local factor never uses C̃, so K1 does not compute it
+        fac_t, _c, piv, _av = panel_factor(d_t, ones_avail, want_ct=False)
         lu_d = gather_rows(fac_t.transpose(1, 2).contiguous(), piv)
         linv = _unit_lower_inv(torch.tril(lu_d, -1) + eye)
         uinv = _upper_inv(torch.triu(lu_d))
@@ -261,7 +263,8 @@ def panel_lu_apply(f: PanelLUFactors, rhs: torch.Tensor) -> torch.Tensor:
 def _refine(x, residual, apply, tol: float, cap: int):
     """Adaptive refinement loop shared by the batched panel solvers.
 
-    Returns (x, final residual norm).
+    Returns (x, final residual norm). Counts its iterations in
+    ``_refine.iterations`` (a plain counter, like the kernels' launches).
     """
     r = residual(x)
     r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
@@ -270,7 +273,11 @@ def _refine(x, residual, apply, tol: float, cap: int):
         r = residual(x)
         r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
         it += 1
+    _refine.iterations += it
     return x, r_norm
+
+
+_refine.iterations = 0
 
 
 def solve_batch_panel(
@@ -302,6 +309,11 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     ``panel_pivot="block"`` the block-pivot factor runs first and the chunk
     escalates to the full-pivot factor when refinement stagnates above
     max(10·ε·‖b‖, 1e-9·‖b‖). Returns x [I, N, M].
+
+    Plain counters, like the kernels' launches: ``escalations`` counts the
+    chunks escalated to the full-pivot factor, and ``chunk_iterations``
+    gets each chunk's refinement iterations (all its factors), appended in
+    order. `reset_sweep_counters` zeroes them.
     """
     from morfem_tpu_torch.ops.assembly import impulse_vector
 
@@ -361,8 +373,24 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
         # "not <=" so that a NaN residual (an exactly singular diagonal
         # block under block pivoting) escalates too
         if not r_norm <= sound_tol:
+            solve_sweep_panel.escalations += 1
             x = factor_refine("f32x6", "full")[0]
         return x
 
-    xs = torch.cat([solve_chunk(ts) for ts in ts_all.split(chunk)])
-    return xs[:i_pts]
+    xs = []
+    for ts in ts_all.split(chunk):
+        before = _refine.iterations
+        xs.append(solve_chunk(ts))
+        solve_sweep_panel.chunk_iterations.append(_refine.iterations - before)
+    return torch.cat(xs)[:i_pts]
+
+
+solve_sweep_panel.escalations = 0
+solve_sweep_panel.chunk_iterations = []
+
+
+def reset_sweep_counters() -> None:
+    """Zero the refinement and escalation counters of the panel solvers."""
+    _refine.iterations = 0
+    solve_sweep_panel.escalations = 0
+    solve_sweep_panel.chunk_iterations = []

@@ -184,3 +184,125 @@ def test_reduced_sweep_kernel_pivot_tie(cuda):
     got = gauss_jordan_sweep_solve(*args, symmetrize=False)
     ref = gauss_jordan_sweep_solve_plain(*args, symmetrize=False)
     assert torch.equal(got, ref)
+
+
+def _same_factor(got, ref):
+    """Pivots and availability exactly, fac (and C̃ where present) bit for
+    bit: the kernels round every update as the plain version does."""
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    for a, b in zip(got[:2], ref[:2]):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b), float((a - b).abs().max())
+
+
+@pytest.mark.parametrize("g,p,npl,want_ct", [
+    (8, 384, 384, False),  # the block-pivot diagonal blocks
+    (8, 384, 384, True),
+    (3, 40, 77, True),     # ragged lanes: the last CTAs hold 5 or none
+    (2, 9, 9, False),
+    (1, 128, 3456, True),  # full pivot with C̃: the one-CTA kernel
+    (1, 128, 3456, False),
+])
+def test_panel_factor_kernels_equal_the_plain_version(cuda, g, p, npl,
+                                                      want_ct):
+    from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
+
+    rng = np.random.default_rng(g * p + npl)
+    pt = _t(rng.standard_normal((g, p, npl)).astype(np.float32), cuda)
+    av = np.ones((g, npl), np.float32)
+    if p < npl:
+        av[:, rng.choice(npl, (npl - p) // 2, replace=False)] = 0.0
+    av = _t(av, cuda)
+    reset_launch_counts()
+    got = panel_factor(pt, av, want_ct=want_ct)
+    ref = panel_factor_plain(pt, av, want_ct=want_ct)
+    torch.cuda.synchronize()
+    assert launch_counts()["panel_factor"] == 1
+    assert uses_cluster_kernel(p, npl, want_ct) is not (
+        (p, npl, want_ct) == (128, 3456, True))
+    _same_factor(got, ref)
+
+
+@pytest.mark.parametrize("lanes", [(20, 100), (5, 9), (100, 20)])
+def test_panel_factor_kernel_tie_goes_to_the_lowest_lane(cuda, lanes):
+    # |2| at two lanes of column 0, in different CTAs of the cluster (16
+    # lanes each at Npl=128) or in one: the lower lane pivots
+    rng = np.random.default_rng(sum(lanes))
+    pt = rng.uniform(-1.0, 1.0, (2, 16, 128)).astype(np.float32)
+    pt[:, 0, lanes[0]] = -2.0
+    pt[:, 0, lanes[1]] = 2.0
+    pt, av = _t(pt, cuda), torch.ones((2, 128), device=cuda)
+    for want_ct in (True, False):
+        got = panel_factor(pt, av, want_ct=want_ct)
+        ref = panel_factor_plain(pt, av, want_ct=want_ct)
+        assert int(got[2][0, 0]) == min(lanes)
+        _same_factor(got, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(70, 50, 90), (129, 384, 257),
+                                   (384, 128, 200), (3, 1, 5)])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_word_split_kernel_matches_both_plain_versions(cuda, m, k, n, sign):
+    from morfem_tpu_torch.ops.kernels.fused_mm import mm_words_split_plain
+
+    rng = np.random.default_rng(m * k + n)
+    # the transposed coefficient view and a strided addend view, as the
+    # panel LU passes them
+    c = _t(rng.standard_normal((2, k, m)).astype(np.float32), cuda)
+    c = c.transpose(1, 2)
+    r = _t(rng.standard_normal((2, k, n + 7)).astype(np.float32), cuda)
+    r = r[:, :, 7:]
+    big = _t(rng.standard_normal((2, m + 3, n + 11)).astype(np.float32), cuda)
+    for t in (None, big[:, 3:, 11:]):
+        reset_launch_counts()
+        got = mm_words(c, r, t, sign=sign)
+        torch.cuda.synchronize()
+        assert launch_counts()["mm_words"] == 1
+        split = mm_words_split_plain(c, r, t, sign=sign)
+        ref = mm_words_plain(c, r, t, sign=sign)
+        # the same exact word products summed in another order (tensor
+        # cores vs cuBLAS): f32 rounding, 1e-5 of the |c|·|r| (+|t|) scale
+        scale = float((c.abs() @ r.abs()).max()) + (
+            0.0 if t is None else float(t.abs().max()))
+        assert float((got - split).abs().max()) <= 1e-5 * scale
+        assert float((got - ref).abs().max()) <= 1e-5 * scale
+
+
+def test_word_split_kernel_propagates_nan(cuda):
+    rng = np.random.default_rng(1)
+    c = _t(rng.standard_normal((1, 130, 64)).astype(np.float32), cuda)
+    r = _t(rng.standard_normal((1, 64, 140)).astype(np.float32), cuda)
+    c[0, 5, 7] = float("nan")
+    r[0, 3, 139] = float("inf")
+    got = mm_words(c, r)
+    ref = mm_words_plain(c, r)
+    # a NaN in row 5 of c: a NaN row out; an inf in column 139 of r: a
+    # non-finite column (NaN here, as in the reference's split, whose
+    # lower words of inf are inf - inf; ±inf in the FP32 product)
+    assert bool(torch.isnan(got[0, 5]).all())
+    assert torch.equal(torch.isfinite(got), torch.isfinite(ref))
+    fin = torch.isfinite(ref)
+    assert float((got - ref)[fin].abs().max()) <= 1e-5 * float(
+        ref[fin].abs().max())
+
+
+@pytest.mark.parametrize("with_t", [False, True])
+def test_word_split_kernel_is_as_accurate_as_an_fp32_product(cuda, with_t):
+    # against the exact (f64) result: the tensor cores do not round their
+    # accumulator to nearest, so a long wgmma chain drifts; K2 starts a
+    # fresh partial every 16-wide K step and adds it with round-to-nearest,
+    # which keeps it at least as close as cuBLAS's FP32 product
+    rng = np.random.default_rng(23 + with_t)
+    c = _t(rng.standard_normal((2, 512, 384)).astype(np.float32), cuda)
+    r = _t(rng.standard_normal((2, 384, 640)).astype(np.float32), cuda)
+    t = _t(rng.standard_normal((2, 512, 640)).astype(np.float32), cuda) if (
+        with_t) else None
+    exact = c.double() @ r.double()
+    if t is not None:
+        exact = t.double() - exact
+    sign = -1 if with_t else 1
+    err_k = (mm_words(c, r, t, sign=sign).double() - exact).abs()
+    err_f = (mm_words_plain(c, r, t, sign=sign).double() - exact).abs()
+    assert float(err_k.mean()) <= float(err_f.mean())
+    assert float(err_k.max()) <= 2.0 * float(err_f.max())

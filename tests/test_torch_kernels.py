@@ -7,10 +7,12 @@ themselves are held against the same plain versions on the card by
 `chip_smoke.py` (no CUDA kernel runs here).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from morfem_tpu.ops.pallas.fused_mm import _split_words as jax_split_words
 from morfem_tpu.ops.pallas.fused_mm import mm_words as jax_mm_words
 from morfem_tpu.ops.pallas.panel_factor import panel_factor as jax_panel_factor
 from morfem_tpu.ops.pallas.row_gather import gather_rows as jax_gather_rows
@@ -22,8 +24,14 @@ from morfem_tpu_torch.ops.kernels import (
     launch_counts,
     mm_words,
     panel_factor,
+    panel_factor_plain,
     reset_launch_counts,
 )
+from morfem_tpu_torch.ops.kernels.fused_mm import (
+    mm_words_split_plain,
+    split_words_plain,
+)
+from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,6 +79,90 @@ def test_panel_factor_lowest_index_wins_ties():
     got = panel_factor(torch.from_numpy(pt), torch.from_numpy(av))[2].numpy()
     assert got[0, 0] == 0
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("used", [0, 100])
+def test_panel_factor_without_coefficients_is_the_same_factor(used):
+    # want_ct=False skips C̃ (the block-pivot LU discards it); fac, pivots
+    # and availability stay bit for bit those of want_ct=True
+    rng = np.random.default_rng(40 + used)
+    pt = torch.from_numpy(rng.standard_normal((2, 96, 384)).astype(np.float32))
+    av = torch.ones((2, 384))
+    av[:, torch.from_numpy(rng.choice(384, used, replace=False))] = 0.0
+    fac, ct, piv, avn = panel_factor_plain(pt, av, want_ct=True)
+    fac2, ct2, piv2, avn2 = panel_factor_plain(pt, av, want_ct=False)
+    assert ct is not None and ct2 is None
+    for a, b in ((fac, fac2), (piv, piv2), (avn, avn2)):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a,
+                           b.view(torch.int32) if b.is_floating_point()
+                           else b)
+    assert panel_factor(pt, av, want_ct=False)[1] is None
+
+
+@pytest.mark.parametrize("shape,want_ct,cluster", [
+    ((384, 384), False, True),   # the block-pivot diagonal blocks
+    ((384, 384), True, True),
+    ((128, 3456), True, False),  # full pivot with C̃: 3.5 MB, one CTA
+    ((128, 3456), False, True),
+    ((24, 200), True, True),
+])
+def test_panel_factor_picks_its_kernel_by_shape(shape, want_ct, cluster):
+    assert uses_cluster_kernel(*shape, want_ct) is cluster
+
+
+def _bits(x):
+    return np.asarray(x).view(np.uint16)
+
+
+def test_split_words_match_the_reference_bit_for_bit():
+    special = np.array([
+        0x00000000, 0x80000000,              # ±0
+        0x7F800000, 0xFF800000,              # ±inf
+        0x3F808000, 0xBF808000,              # a tie rounds away from zero
+        0x3F7F8000, 0x3FFFFFFF, 0x7F7FFFFF,  # mantissa carry into exponent
+        0x7FFF8000, 0x7FFF7FFF, 0xFFFF8000,  # NaN payloads near the carry
+        0x7FFFFFFF, 0x7F800001, 0xFFC00000,
+        0x00000001, 0x807FFFFF, 0x00800000,  # subnormals, the smallest normal
+    ], dtype=np.uint32)
+    rng = np.random.default_rng(9)
+    x = np.concatenate([
+        special,
+        rng.integers(0, 2**32, 20000, dtype=np.uint64).astype(np.uint32),
+        (rng.standard_normal(4000) * 10.0 ** rng.integers(-30, 30, 4000))
+        .astype(np.float32).view(np.uint32),
+    ]).view(np.float32)
+    ref = jax_split_words(jnp.asarray(x), 3)
+    got = split_words_plain(torch.from_numpy(x.copy()))
+    assert len(got) == 3
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(g.view(torch.int16).numpy()),
+                                      _bits(r))
+    # and the words sum back to x exactly, away from the flushed
+    # subnormal residuals and the rounding overflow next to FLT_MAX
+    fin = (np.abs(x) >= 2.0 ** -100) & (np.abs(x) <= 2.0 ** 100)
+    total = sum(w.double() for w in got).numpy()
+    np.testing.assert_array_equal(total[fin], x[fin].astype(np.float64))
+
+
+@pytest.mark.parametrize("with_t,sign", [(False, 1), (True, -1)])
+def test_word_split_product_matches_pallas(with_t, sign):
+    rng = np.random.default_rng(17 + with_t)
+    g, m, k, n = 2, 128, 384, 256
+    c = rng.standard_normal((g, m, k)).astype(np.float32)
+    r = (rng.standard_normal((g, k, n)) * 1e3).astype(np.float32)
+    t = rng.standard_normal((g, m, n)).astype(np.float32) if with_t else None
+    ref = np.asarray(jax_mm_words(c, r, t, sign=sign, interpret=True))
+    got = mm_words_split_plain(
+        torch.from_numpy(c), torch.from_numpy(r),
+        None if t is None else torch.from_numpy(t), sign=sign).numpy()
+    # the same six exact word products, summed in f32 over K=384 in
+    # another order: f32 rounding, ~1e-7 of the |c|·|r| (+|t|) scale
+    scale = np.abs(c).astype(np.float64) @ np.abs(r)
+    if t is not None:
+        scale = scale + np.abs(t)
+    assert np.abs(got - ref).max() <= 1e-6 * scale.max()
 
 
 @pytest.mark.parametrize("with_t,sign", [(False, 1), (True, 1), (True, -1)])

@@ -9,12 +9,14 @@ from fixed seeds and fed to both packages.
 import re
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import scipy.sparse.linalg  # noqa: F401  (sp.linalg)
 import torch
 
 import morfem_tpu as mt
@@ -179,6 +181,99 @@ def test_sparse_snapshot_basis_and_projection_match():
     for r, rj in zip((*rs, b_r), (*rsj, b_rj)):
         np.testing.assert_allclose(r.numpy(), np.asarray(rj), rtol=1e-12,
                                    atol=1e-12)
+
+
+def test_failed_snapshot_stops_cleanly():
+    """Port twin of the JAX package's test of the same name: a hopeless
+    Krylov budget must warn and return converged=False without poisoning
+    the basis, in both packages alike."""
+    from morfem_tpu.ops.sparse import SparseAffineOperator as JaxSparseOp
+    from morfem_tpu_torch.ops.sparse import SparseAffineOperator
+
+    domain, a0, a1, a2, b = _banded_system(seed=9)
+    mats = [sp.csr_matrix(a) for a in (a0, a1, a2)]
+    kw = dict(factor_dtype_name="float64", refine_iterations=0,
+              error_threshold=1e-9, orthonormalization="mgs")
+    cfg = pt.MorfemConfig(**kw)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        res, rm = greedy_basis_matfree(
+            SparseAffineOperator(*mats, symmetrize=cfg.symmetrize,
+                                 device=CPU),
+            b, domain, config=cfg, snapshot_tol=1e-12, snapshot_maxiter=1)
+    assert not res.converged and res.failed_snapshot
+    assert any("relative residual" in str(x.message) for x in w)
+    assert np.isfinite(res.q.numpy()).all()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        res_j, _ = mt.greedy_basis_matfree(
+            JaxSparseOp(*mats, symmetrize=cfg.symmetrize), jnp.asarray(b),
+            jnp.asarray(domain), config=mt.MorfemConfig(**kw),
+            snapshot_tol=1e-12, snapshot_maxiter=1)
+    assert not bool(res_j.converged) and bool(res_j.failed_snapshot)
+    assert res.iterations == int(res_j.iterations)
+
+
+@pytest.mark.parametrize("failed", [True, False])
+def test_morfem_unconverged_warning_matches_the_reference(failed):
+    """morfem()'s warning after a failed snapshot says the build ABORTED
+    and that more iterations will NOT help; after an exhausted budget it
+    says to raise them. Same text as the JAX package's."""
+    from morfem_tpu.mor.api import _warn_if_unconverged as jax_warn
+    from morfem_tpu.mor.greedy import GreedyResult as JaxGreedyResult
+    from morfem_tpu_torch.mor.api import _warn_if_unconverged
+    from morfem_tpu_torch.mor.greedy import GreedyResult
+
+    fields = dict(q=np.zeros((4, 2)), ncols=2, iterations=3,
+                  converged=False, err_hist=np.zeros((4, 5)),
+                  failed_snapshot=failed)
+    messages = []
+    for warn, cls in ((_warn_if_unconverged, GreedyResult),
+                      (jax_warn, JaxGreedyResult)):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            warn(cls(**fields))
+        assert len(w) == 1
+        messages.append(str(w[0].message))
+    assert messages[0] == messages[1]
+    if failed:
+        assert "ABORTED" in messages[0]
+        assert "will NOT help" in messages[0]
+    else:
+        assert "raise config.max_greedy_iterations" in messages[0]
+
+
+def test_general_route_converges_with_dropped_mass_like_the_reference():
+    """The truncated-band GMRES route with mass outside the band: the port
+    and the JAX package drop the same mass and both converge. (With ~12 %
+    or more dropped, as on the bare 2-D pencil with a band below its
+    natural half-bandwidth p+1, both stall alike: tools/general_route_stall.py,
+    PERF.md.)"""
+    from chip_smoke import scattered_waveguide_2d
+    from morfem_tpu.ops import block_tridiag as jbt
+    from morfem_tpu_torch.ops import block_tridiag as tbt
+
+    mats, wp = scattered_waveguide_2d(32)
+    band, f = 40, 3e9
+    coef = [1.0, f, f * f]
+    ex_t, bd_t, perm_t, dropped_t = tbt.truncated_band_via_rcm(
+        *mats, band_half=band, device=CPU)
+    ex_j, bd_j, perm_j, dropped_j = jbt.truncated_band_via_rcm(
+        *mats, band_half=band)
+    np.testing.assert_array_equal(perm_t.numpy(), np.asarray(perm_j))
+    assert 0.0 < dropped_t == dropped_j < 0.01
+    rhs = f * wp[perm_t.numpy()]
+    x_t, rel_t = tbt.general_sparse_solve(
+        ex_t, bd_t, torch.tensor(coef, dtype=torch.float64),
+        torch.from_numpy(rhs), maxiter=3)
+    x_j, rel_j = jbt.general_sparse_solve(
+        ex_j, bd_j, jnp.asarray(coef), jnp.asarray(rhs), maxiter=3)
+    assert float(rel_t.max()) < 1e-10 and float(np.max(rel_j)) < 1e-10
+    perm = perm_t.numpy()
+    a = sum(cp * ((m + m.T) * 0.5) for cp, m in zip(coef, mats)).tocsc()
+    ref = sp.linalg.spsolve(a[perm][:, perm], rhs)
+    for x in (x_t.numpy(), np.asarray(x_j)):
+        assert np.linalg.norm(x - ref) <= 1e-8 * np.linalg.norm(ref)
 
 
 def _scrambled_waveguide(n=1024, seed=3):

@@ -15,10 +15,12 @@ from morfem_tpu.config import MorfemConfig as JaxConfig
 from morfem_tpu.ops.panel_lu import solve_sweep_panel as jax_solve_sweep_panel
 from morfem_tpu_torch.compat import system_from_numpy
 from morfem_tpu_torch.config import MorfemConfig
+from morfem_tpu_torch.ops import panel_lu as panel_lu_mod
 from morfem_tpu_torch.ops.panel_lu import (
     panel_lu_apply,
     panel_lu_factor,
     panel_lu_factor_block,
+    reset_sweep_counters,
     solve_batch_panel,
     solve_sweep_panel,
 )
@@ -118,3 +120,46 @@ def test_block_factor_escalates_on_singular_diagonal_block():
     x_np = np.stack([np.linalg.solve(a0, t * b) for t in domain])
     assert np.all(np.isfinite(x))
     assert np.linalg.norm(x - x_np) / np.linalg.norm(x_np) < 1e-10
+
+
+@pytest.mark.parametrize("factor,want_ct", [(panel_lu_factor, True),
+                                            (panel_lu_factor_block, False)])
+def test_only_the_full_pivot_factor_asks_for_the_coefficients(
+        monkeypatch, factor, want_ct):
+    # the block-pivot factor discards C̃, so K1 skips it there
+    seen = []
+    real = panel_lu_mod.panel_factor
+
+    def spy(panel_t, avail, want_ct=True):
+        seen.append(want_ct)
+        return real(panel_t, avail, want_ct)
+
+    monkeypatch.setattr(panel_lu_mod, "panel_factor", spy)
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((1, 256, 256)) + 8 * np.eye(256)
+    factor(torch.from_numpy(a), panel=128)
+    assert seen == [want_ct] * 2
+
+
+@pytest.mark.parametrize("singular", [False, True])
+def test_sweep_counts_escalations_and_refinement_iterations(singular):
+    n = 256
+    rng = np.random.default_rng(5)
+    a0 = rng.standard_normal((n, n))
+    a0 = a0 + a0.T + 4 * np.sqrt(n) * np.eye(n)
+    if singular:
+        a0[:128, :128] = 0.0  # block pivoting must escalate
+    domain = np.array([1.0, 2.0, 3.0])
+    z = np.zeros((n, n))
+    b = rng.standard_normal((n, 1))
+    sys_ = system_from_numpy(domain, a0, z, z, b, device="cpu")
+    reset_sweep_counters()
+    solve_sweep_panel(sys_, MorfemConfig(factorization="panel",
+                                         panel_width=128, solve_chunk=2))
+    assert solve_sweep_panel.escalations == (2 if singular else 0)
+    its = solve_sweep_panel.chunk_iterations
+    assert len(its) == 2 and all(i >= 1 for i in its)
+    assert sum(its) == panel_lu_mod._refine.iterations
+    reset_sweep_counters()
+    assert solve_sweep_panel.escalations == 0
+    assert solve_sweep_panel.chunk_iterations == []
