@@ -39,7 +39,11 @@ Phases, each printing one progress line with its seconds and numbers:
 
 Each path's kernels are counted from zero over that path's run alone and
 must have launched; the kernels phase (3) holds K4-K6 against their plain
-versions too, at the shapes these paths give them.
+versions too, at the shapes these paths give them: K4's warp variant at
+the build and serving grids and its block variant at K=84, bit for bit;
+K6 packed on the fly and through the Krylov operator's own packing. K4-K6
+and their library calls are also timed on the device alone (`device_ms`),
+since their time per call is mostly the host's.
 
 A watchdog (faulthandler) ends a phase that hangs, with a traceback and a
 non-zero exit; the phase's name is on the last progress line. Any failed
@@ -131,6 +135,31 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time of `fn` in ms, without the host's time per call: the
+    calls are queued behind a sleeping kernel, so they run back to back,
+    and CUDA events time them there. None if the host could not queue
+    them all while the card slept (a call that synchronises)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~30 ms of the card's clock
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued else None
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def bound(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes/bandwidth and flops/peak
     (FP32 on the CUDA cores unless another peak is given)."""
@@ -164,6 +193,9 @@ def ptxas_summary(log: str):
         if m:
             current["spill_stores"] = int(m.group(1))
             current["spill_loads"] = int(m.group(2))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            current["stack_frame"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             current["registers"] = int(m.group(1))
@@ -338,59 +370,80 @@ def kernel_phase(dev):
         principal = next(r for p, r in rows if p)
         worst = max(r["max_abs_err"] for _, r in rows)
         rec[name] = dict(principal, max_abs_err=worst)
+        if "variant" in principal:  # K4: which variant ran each shape
+            rec[name]["variants"] = [[r["shape"], r["variant"]]
+                                     for _, r in rows]
     return rec
 
 
 def _kernels_k4(dev, gen, keep):
     """K4 at the waveguide's reduced size (K=40, M=2) for the I=100 build
-    grid and the 10,000-point serving grid."""
+    grid and the 10,000-point serving grid (warp variant), and at K=84,
+    I=100 (block variant)."""
     import torch
 
     from morfem_tpu_torch.ops.kernels import (
         gauss_jordan_sweep_solve, gauss_jordan_sweep_solve_plain,
     )
+    from morfem_tpu_torch.ops.kernels.reduced_sweep import sweep_variant
 
-    k, m = 40, 2
-    rs = [torch.randn((k, k), generator=gen, device=dev, dtype=torch.float64)
-          for _ in range(3)]
-    rs[0] = rs[0] + 4 * k * torch.eye(k, device=dev, dtype=torch.float64)
-    inactive = torch.zeros(k, device=dev, dtype=torch.float64)
-    inactive[k - 2:] = 1.0  # two inactive (identity-padded) columns
-    for i_pts, principal in ((100, False), (10000, True)):
+    m = 2
+    for k, i_pts, principal in ((40, 100, False), (40, 10000, True),
+                                (84, 100, False)):
+        rs = [torch.randn((k, k), generator=gen, device=dev,
+                          dtype=torch.float64) for _ in range(3)]
+        rs[0] = rs[0] + 4 * k * torch.eye(k, device=dev, dtype=torch.float64)
+        inactive = torch.zeros(k, device=dev, dtype=torch.float64)
+        inactive[k - 2:] = 1.0  # two inactive (identity-padded) columns
         c = torch.rand((i_pts, 3), generator=gen, device=dev,
                        dtype=torch.float64) + 0.5
         rhs = torch.randn((i_pts, k, m), generator=gen, device=dev,
                           dtype=torch.float64)
         args = (*rs, c, rhs, inactive)
+        variant = sweep_variant(k, m)
         out_k = gauss_jordan_sweep_solve(*args)
         out_p = gauss_jordan_sweep_solve_plain(*args)
         err = float((out_k - out_p).abs().max())
-        # the same pivots and roundings step for step: equal in practice;
-        # the tolerance covers f32 rounding-order differences only
-        check(err <= 1e-5 * float(out_p.abs().max()),
-              f"K4 error {err} at I={i_pts}")
+        # the same pivots and roundings step for step: bit for bit
+        check(torch.equal(out_k, out_p),
+              f"K4 ({variant}) differs from its plain version by {err} at "
+              f"K={k} I={i_pts}")
         ms = cuda_ms(lambda: gauss_jordan_sweep_solve(*args))
+        # the kernel alone: operands already f32 and symmetrized, as
+        # fused_reduced_sweep passes them
+        r32 = [((r.float() + r.float().T) * 0.5).contiguous() for r in rs]
+        args32 = (*r32, c.float(), rhs.float(), inactive.float())
+        dev_ms = device_ms(
+            lambda: gauss_jordan_sweep_solve(*args32, symmetrize=False))
         plain_ms = cuda_ms(lambda: gauss_jordan_sweep_solve_plain(*args), 2)
-        # library: batched LU solve of the PRE-ASSEMBLED f32 systems (the
-        # kernel also assembles them; that part is left out here)
-        r32 = [(r.float() + r.float().T) * 0.5 for r in rs]
-        a32 = (c[:, 0, None, None].float() * r32[0]
-               + c[:, 1, None, None].float() * r32[1]
-               + c[:, 2, None, None].float() * r32[2]
-               + torch.diag(inactive.float()))
-        b32 = rhs.float()
-        lib_ms = cuda_ms(lambda: torch.linalg.solve(a32, b32))
+        # library: the same function in PyTorch calls, assembly of the
+        # f32 systems included, then a batched LU solve; the solve alone
+        # (assembly excluded) beside it
+        c32, d32, b32 = c.float(), torch.diag(inactive.float()), rhs.float()
+
+        def assemble():
+            return (c32[:, 0, None, None] * r32[0]
+                    + c32[:, 1, None, None] * r32[1]
+                    + c32[:, 2, None, None] * r32[2] + d32)
+
+        lib_ms = cuda_ms(lambda: torch.linalg.solve(assemble(), b32))
+        lib_dev_ms = device_ms(lambda: torch.linalg.solve(assemble(), b32))
+        a32 = assemble()
+        solve_ms = cuda_ms(lambda: torch.linalg.solve(a32, b32))
         flops = i_pts * (5 * k * k + k * k * (k - 1) + 2 * k * k * m)
         nbytes = 4 * (3 * k * k + k + 3 * i_pts + 2 * i_pts * k * m)
         b_ms, b_by = bound(nbytes, flops)
-        print(f"  K4 gauss_jordan_sweep_solve K={k} I={i_pts} M={m}: "
-              f"max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"(linalg.solve, assembly excluded) bound_ms={b_ms:.5f} "
-              f"({b_by})", flush=True)
+        print(f"  K4 gauss_jordan_sweep_solve ({variant} variant) K={k} "
+              f"I={i_pts} M={m}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+              f"(device, kernel alone {_fmt(dev_ms)}) plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} (assembly "
+              f"+ linalg.solve; device {_fmt(lib_dev_ms)}; solve alone "
+              f"{solve_ms:.4f}) "
+              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
         keep("gauss_jordan_sweep_solve", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib_ms, shape=[i_pts, k, m])
+             library_ms=lib_ms, shape=[i_pts, k, m], variant=variant,
+             device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
 
 def _band_csr(band, half):
@@ -426,59 +479,109 @@ def _kernels_k5(dev, gen, keep):
     err = float((out_k - out_p).abs().max())
     check(err == 0.0, f"K5 differs from its plain version: {err}")
     ms = cuda_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
+    dev_ms = device_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
     plain_ms = cuda_ms(lambda: banded_matvec_padded_plain(band, n, bw, half,
                                                           x))
     csr = _band_csr(band, half)
     lib_ms = cuda_ms(lambda: csr @ x, 50)
+    lib_dev_ms = device_ms(lambda: csr @ x, 50)
     b_ms, b_by = bound(4 * (n * bw + 2 * n * m), 2 * n * bw * m)
     print(f"  K5 banded_matvec_padded N={n} bw={bw} M={m}: "
-          f"max_abs_err={err} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} (CSR @ dense) bound_ms={b_ms:.5f} "
-          f"({b_by})", flush=True)
+          f"max_abs_err={err} kernel_ms={ms:.4f} (device {_fmt(dev_ms)}) "
+          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (CSR @ dense; "
+          f"device {_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by})",
+          flush=True)
     keep("banded_matvec_padded", True, max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-         shape=[n, bw, m])
+         shape=[n, bw, m], device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
 
 def _kernels_k6(dev, gen, keep):
     """K6 on the Krylov phase's block-sparse operator (N=34,225, M=2)."""
     import torch
 
-    from morfem_tpu_torch.ops.block_sparse import BlockSparseAffineOperator
+    from morfem_tpu_torch.ops.block_sparse import (
+        BlockSparseAffineOperator, bsr_from_scipy,
+    )
     from morfem_tpu_torch.ops.kernels import (
         bsr_matmul_f32, bsr_matmul_f32_plain,
+    )
+    from morfem_tpu_torch.ops.kernels.block_sparse import (
+        SECTOR_WIDTH, bsr_pack_sectors, sector_matmul_plain,
     )
     from morfem_tpu_torch.ops.sparse import to_csr
 
     mats = krylov_pencil(P_34K ** 2, scattered=True)
     op = BlockSparseAffineOperator(*mats, device=dev)
-    c = torch.tensor([1.0, 0.0, 2.25], dtype=torch.float64, device=dev)
-    nb = op.brows.shape[0]
-    vals2d = op._combined(c).float().reshape(nb * op.br, op.bc)
+    cs = (1.0, 0.0, 2.25)
+    c = torch.tensor(cs, dtype=torch.float64, device=dev)
     n, m = op.n, 2
+    # the operator's dense blocks, combined: what the first K6 read
+    sym = [(mp + mp.T) * 0.5 for mp in mats]
+    vals, brows, bcols, nbr, nbc = bsr_from_scipy(sym, n)
+    vals2d = torch.tensordot(torch.tensor(cs, dtype=torch.float64),
+                             torch.from_numpy(vals), dims=1).float()
+    nb = vals2d.shape[0]
+    vals2d = vals2d.reshape(nb * op.br, op.bc).to(dev)
+    del vals
+    brows, bcols = torch.as_tensor(brows, device=dev), torch.as_tensor(
+        bcols, device=dev)
     x = torch.randn((n, m), generator=gen, device=dev)
-    args = (vals2d, op.brows, op.bcols, op.nbr, op.nbc, n, op.br, op.bc, x)
-    out_k = bsr_matmul_f32(*args, rowptr=op.rowptr)
+    args = (vals2d, brows, bcols, nbr, nbc, n, op.br, op.bc, x)
     out_p = bsr_matmul_f32_plain(*args)
-    err = float((out_k - out_p).abs().max())
     scale = float(bsr_matmul_f32_plain(vals2d.abs(), *args[1:8],
                                        x.abs()).max())
-    # f32 sums over each block row in another order than bmm + index_add_
-    check(err <= 1e-5 * scale, f"K6 error {err} (scale {scale})")
-    ms = cuda_ms(lambda: bsr_matmul_f32(*args, rowptr=op.rowptr), 20)
+    # packed on the fly, and through the operator's own packing (bind);
+    # f32 sums over each row in another order than bmm + index_add_
+    out_k = bsr_matmul_f32(*args)
+    err = float((out_k - out_p).abs().max())
+    err_bind = float((op.bind(c)(x) - out_p).abs().max())
+    check(max(err, err_bind) <= 1e-5 * scale,
+          f"K6 error {err} (through bind {err_bind}, scale {scale})")
+    packing = op._combined(c)
+    nnz = int((op.sectors.vals != 0).any(0).sum())  # the union nonzeros
+    nsec = packing.cols.numel()
+    # the packing on the fly runs on the card: its time, and its sectors
+    # are the operator's
+    blocks = vals2d.reshape(nb, op.br, op.bc)
+    pack_ms = cuda_ms(lambda: bsr_pack_sectors(blocks, brows, bcols, n), 3)
+    check(torch.equal(bsr_pack_sectors(blocks, brows, bcols, n).cols,
+                      packing.cols), "K6 packing on the card differs from "
+          "the operator's")
+    p32 = packing._replace(vals=packing.vals.float().contiguous())
+    def kernel():
+        return bsr_matmul_f32(None, None, None, nbr, nbc, n, op.br, op.bc, x,
+                              packing=p32)
+
+    ms = cuda_ms(kernel, 50)
+    dev_ms = device_ms(kernel, 50)
     plain_ms = cuda_ms(lambda: bsr_matmul_f32_plain(*args))
-    a = sum(float(c[p]) * (mp + mp.T) * 0.5 for p, mp in enumerate(mats))
+    sector_plain_ms = cuda_ms(lambda: sector_matmul_plain(p32, x))
+    a = sum(cp * mp for cp, mp in zip(cs, sym))
     csr = to_csr(a, dtype=torch.float32, device=dev)
-    lib_ms = cuda_ms(lambda: csr @ x, 20)
-    nbytes = (4 * nb * op.br * op.bc + 4 * nb + 4 * (op.nbr + 1)
-              + 4 * 2 * n * m)
-    b_ms, b_by = bound(nbytes, 2 * nb * op.br * op.bc * m)
-    print(f"  K6 bsr_matmul_f32 N={n} blocks={nb} ({op.br}x{op.bc}) M={m} "
-          f"csr_nnz={a.nnz}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (CSR @ dense) "
-          f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
-    keep("bsr_matmul_f32", True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=[nb, n, m])
+    lib_ms = cuda_ms(lambda: csr @ x, 50)
+    lib_dev_ms = device_ms(lambda: csr @ x, 50)
+    # the work itself: the nonzeros once, x read and y written once, and
+    # the packing's indices; the first K6's bound counted the blocks
+    nbytes = 4 * nnz + 4 * 2 * n * m + 4 * (nsec + n + 1)
+    b_ms, b_by = bound(nbytes, 2 * nnz * m)
+    dense_ms, _ = bound(4 * nb * op.br * op.bc + 4 * nb + 4 * (nbr + 1)
+                        + 4 * 2 * n * m, 2 * nb * op.br * op.bc * m)
+    print(f"  K6 bsr_matmul_f32 N={n} M={m} blocks={nb} ({op.br}x{op.bc}) "
+          f"nnz={nnz} (csr_nnz={a.nnz}, fill "
+          f"{nnz / (nb * op.br * op.bc):.4f}) sectors={nsec} of width "
+          f"{SECTOR_WIDTH} ({4 * nsec * SECTOR_WIDTH / 1e6:.3f} MB): "
+          f"max_abs_err={err:.3e} (through bind {err_bind:.3e}) "
+          f"kernel_ms={ms:.4f} (device {_fmt(dev_ms)}) plain_ms="
+          f"{plain_ms:.4f} (blocks; over the packing {sector_plain_ms:.4f}) "
+          f"library_ms={lib_ms:.4f} (CSR @ dense; device "
+          f"{_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by}) [dense blocks "
+          f"{dense_ms:.5f}]", flush=True)
+    print(f"  K6 packing on the fly (bsr_pack_sectors on the card): "
+          f"{pack_ms:.3f} ms", flush=True)
+    keep("bsr_matmul_f32", True, max_abs_err=max(err, err_bind), ms=ms,
+         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+         shape=[nnz, n, m], device_ms=dev_ms, library_device_ms=lib_dev_ms)
 
 
 def krylov_pencil(n, scattered=False, half=6, seed=0):
@@ -933,6 +1036,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
+            **({"variants": r["variants"]} if "variants" in r else {}),
+            **{key: r[key] for key in ("device_ms", "library_device_ms")
+               if key in r},
         })
     print(smi, flush=True)  # name and power limit, as nvidia-smi gives them
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,108 +1,119 @@
-// Block-sparse (BSR) SpMM: y = A·x with A stored as dense 32×128 blocks on
-// a sparse block grid, blocks sorted by block row:
+// Block-sparse SpMM over packed nonzero row sectors: y = A·x, with the
+// operator's nonzeros packed once into W-wide row sectors, W = 8
+// (`pack_sectors` in ops/kernels/block_sparse.py):
 //
-//   y[32·brow_k : 32·brow_k + 32] += vals[k] · x[128·bcol_k : 128·bcol_k + 128]
+//   y[r] = Σ_{s in row r}  Σ_{c < W}  vals[s][c] · x[cols[s] + c]
+//
+// where the sectors of row r are rowptr[r] … rowptr[r+1]−1, each starting
+// at any absolute column (it may straddle a block edge or run past N; x is
+// read as zero there). The function is the one of the stored blocks,
+//
+//   y[32·brow_k : +32] += blocks[k] · x[128·bcol_k : +128],
+//
+// because a sector holds every nonzero of its columns and nothing outside
+// them is nonzero.
 //
 // Replaces the Pallas kernel `_bsr_kernel` (entry `bsr_matmul_pallas`) in
-// morfem_tpu/ops/block_sparse.py. The TPU kernel walked the stored blocks
-// as a sequential grid, prefetching the block indices into SMEM and
-// keeping the output block resident in VMEM across consecutive steps of
-// one block row. Blocks on Hopper run in parallel in no order, so a row
-// pointer array (computed once per operator on the host side) gives each
-// thread block one whole block row instead: it accumulates all of that
-// row's blocks in registers and writes its 32 output rows once, with no
-// atomics, so the result is deterministic. A block row with no stored
-// block writes zeros.
+// morfem_tpu/ops/block_sparse.py, which walked the stored blocks as a
+// sequential grid with the output block resident in VMEM.
 //
-// What bounds it on this card. Each stored block is 16 KB of f32 values
-// used for 2·32·128·M flops (M = 2: 1 flop per byte), so it is bound by
-// memory bandwidth on the block values.
+// What bounds it on this card. Bytes: each value is used for 2·M flops
+// (M ≤ 8), far below the card's ~20 flops per byte for FP32. On the Krylov
+// pencil (N = 34,225, scattered far couplings) 98 % of the dense blocks'
+// values are stored zeros (1.9 % fill), so the first version, which read
+// every block whole (95 MB per call), lost to CSR SpMM. The union nonzeros
+// (449,159) fit in 72,722 greedy 8-wide sectors, 2.3 MB of values: at that
+// size the kernel sits on the launch-and-latency floor (~5 µs on the
+// device, chip_smoke.py on an H100).
 //
-// What the simple design does about it. 128 threads (4 warps) per block
-// row; warp w owns output rows w, w+4, …, w+28, and lane l the columns
-// 4l … 4l+3 of every block, so each warp reads one 512-byte block row
-// with one 16-byte load per lane (coalesced). The x segment of the current
-// block is staged in shared memory as [M][128] and read as float4 (no bank
-// conflicts). Each lane keeps partial sums for its 8 rows × M columns
-// across all blocks of the row (FMAs, f32) and a warp shuffle reduction
-// finishes them at the end. M ≤ 8 per launch; the wrapper splits wider x.
+// Sector width W = 8: a sector of 8 f32 is one 32-byte DRAM sector (two
+// float4 loads) and wastes few bytes, though a row of the 13-wide band
+// takes 2–3 of them. A 16-wide packing covers such a row in one (38,501
+// sectors, 2.5 MB) with fewer dependent steps per thread, but ran in the
+// same ~5 µs on the H100, so only the narrower width, which reads fewer
+// bytes, is built. Sectors start at the first column not yet covered in
+// their row (greedy), not at multiples of 8: that cuts the count from
+// 89,832 aligned sectors to 72,722.
+//
+// The design. One thread owns one row (a warp one 32-row block row):
+// it walks its row's sectors in order, loads each sector's values as W/4
+// float4 (every byte of a loaded DRAM sector is used), reads the W·M
+// values of x it meets (contiguous in x's row-major [N, M] layout; x sits
+// in L2) and accumulates the M outputs in registers with FMAs. Each output
+// row is written once, by its owner: no atomics, and the summation order
+// (sector by sector, column by column) is fixed, so the result is
+// deterministic. M ≤ 8 per launch (the wrapper splits wider x); M is a
+// template parameter, so the loops unroll.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BR = 32, BC = 128, NT = 128, MAXM = 8, RPW = BR / (NT / 32);
+constexpr int NT = 128, MAXM = 8, W = 8;
 
+template <int M>
 __global__ void __launch_bounds__(NT)
-bsr_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ bcols,
-                const int* __restrict__ rowptr, const float* __restrict__ x,
-                float* __restrict__ y, int N, int M) {
-  __shared__ __align__(16) float sx[MAXM * BC];
-  const int brow = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[RPW][MAXM];
+sector_spmm_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                   const int* __restrict__ rowptr, const float* __restrict__ x,
+                   float* __restrict__ y, int n) {
+  const int row = blockIdx.x * NT + threadIdx.x;
+  if (row >= n) return;
+  float acc[M];
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr)
+  for (int m = 0; m < M; ++m) acc[m] = 0.f;
+  int s = rowptr[row];
+  const int s1 = rowptr[row + 1];
+  int c0 = s < s1 ? cols[s] : 0;
+  for (; s < s1; ++s) {
+    // the next sector's column now: its load overlaps this sector's
+    const int c_next = s + 1 < s1 ? cols[s + 1] : 0;
+    float v[W];
+    const float4* vs = reinterpret_cast<const float4*>(vals + (int64_t)s * W);
 #pragma unroll
-    for (int m = 0; m < MAXM; ++m) acc[rr][m] = 0.f;
-
-  const int k0 = rowptr[brow], k1 = rowptr[brow + 1];
-  for (int k = k0; k < k1; ++k) {
-    const int col0 = bcols[k] * BC;
-    __syncthreads();  // the previous block's x segment is consumed
-    for (int e = threadIdx.x; e < BC * M; e += NT) {
-      const int cc = e / M, m = e - cc * M;
-      const int gc = col0 + cc;
-      sx[m * BC + cc] = gc < N ? x[(int64_t)gc * M + m] : 0.f;
+    for (int q = 0; q < W / 4; ++q) {
+      const float4 t = __ldg(vs + q);
+      v[4 * q] = t.x; v[4 * q + 1] = t.y; v[4 * q + 2] = t.z; v[4 * q + 3] = t.w;
     }
-    __syncthreads();
-    const float4* vb = reinterpret_cast<const float4*>(vals + (int64_t)k * BR * BC);
-    float4 xs[MAXM];
+    const float* xs = x + (int64_t)c0 * M;
+    if (c0 + W <= n) {
 #pragma unroll
-    for (int m = 0; m < MAXM; ++m)
-      if (m < M) xs[m] = reinterpret_cast<const float4*>(sx + m * BC)[lane];
+      for (int c = 0; c < W; ++c)
 #pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const float4 v = vb[(warp + 4 * rr) * (BC / 4) + lane];
+        for (int m = 0; m < M; ++m) acc[m] = fmaf(v[c], __ldg(xs + c * M + m), acc[m]);
+    } else {  // the last sector of a row may run past column N−1
 #pragma unroll
-      for (int m = 0; m < MAXM; ++m) {
-        if (m < M) {
-          float s = acc[rr][m];
-          s = fmaf(v.x, xs[m].x, s);
-          s = fmaf(v.y, xs[m].y, s);
-          s = fmaf(v.z, xs[m].z, s);
-          s = fmaf(v.w, xs[m].w, s);
-          acc[rr][m] = s;
-        }
-      }
+      for (int c = 0; c < W; ++c)
+        if (c0 + c < n)
+#pragma unroll
+          for (int m = 0; m < M; ++m) acc[m] = fmaf(v[c], __ldg(xs + c * M + m), acc[m]);
     }
+    c0 = c_next;
   }
 #pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int row = brow * BR + warp + 4 * rr;
-#pragma unroll
-    for (int m = 0; m < MAXM; ++m) {
-      if (m < M) {
-        float s = acc[rr][m];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0 && row < N) y[(int64_t)row * M + m] = s;
-      }
-    }
-  }
+  for (int m = 0; m < M; ++m) y[(int64_t)row * M + m] = acc[m];
 }
 
 }  // namespace
 
-extern "C" int morfem_bsr_spmm(const float* vals, const int* bcols,
+extern "C" int morfem_bsr_spmm(const float* vals, const int* cols,
                                const int* rowptr, const float* x, float* y,
-                               int nbr, int N, int M, void* stream) {
-  if (nbr <= 0 || N <= 0 || M <= 0 || M > MAXM)
-    return (int)cudaErrorInvalidValue;
+                               int n, int M, void* stream) {
+  if (n <= 0 || M <= 0 || M > MAXM) return (int)cudaErrorInvalidValue;
   if ((uintptr_t)vals % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  bsr_spmm_kernel<<<nbr, NT, 0, (cudaStream_t)stream>>>(vals, bcols, rowptr,
-                                                        x, y, N, M);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int grid = (n + NT - 1) / NT;
+#define MORFEM_SECTOR_CASE(MM)                                            \
+  case MM:                                                                \
+    sector_spmm_kernel<MM><<<grid, NT, 0, st>>>(vals, cols, rowptr, x, y, \
+                                                n);                       \
+    break;
+  switch (M) {
+    MORFEM_SECTOR_CASE(1) MORFEM_SECTOR_CASE(2) MORFEM_SECTOR_CASE(3)
+    MORFEM_SECTOR_CASE(4) MORFEM_SECTOR_CASE(5) MORFEM_SECTOR_CASE(6)
+    MORFEM_SECTOR_CASE(7) MORFEM_SECTOR_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MORFEM_SECTOR_CASE
   return (int)cudaGetLastError();
 }

@@ -1,19 +1,21 @@
-"""Block-sparse (BSR) operators — general sparsity as dense blocks.
+"""Block-sparse (BSR) operators — general sparsity on a block grid.
 
 Counterpart of `morfem_tpu/ops/block_sparse.py` (host side of kernel K6).
-A matrix is stored as dense [BR, BC] = [32, 128] blocks on a sparse block
-grid, blocks sorted by (block row, block column):
+A matrix is partitioned into [BR, BC] = [32, 128] blocks on a sparse block
+grid, blocks sorted by (block row, block column), as in the reference:
 
     A = Σ_k  vals[k]  placed at  (brows[k]·BR, bcols[k]·BC)
 
-Two application paths, as in the reference:
+The operator keeps only the nonzeros, packed once into row sectors
+(`pack_sectors`, from the addends' CSR nonzeros; `bsr_from_scipy` builds
+the blocks themselves, the reference's storage). Two application paths,
+as in the reference:
 
-  * `bsr_matmul` — plain torch in any dtype: gather the x blocks, one
-    batched product, a sum per block row (`index_add_`). The f64 path of
-    residuals, projections and the estimator.
-  * `bsr_matmul_f32` — the CUDA kernel K6 (`ops/kernels/block_sparse.py`),
-    one thread block per block row; the fast path of Krylov iterations
-    (`BlockSparseAffineOperator.bind`).
+  * `sector_matmul_plain` — plain torch in any dtype over the packing. The
+    f64 path of residuals, projections and the estimator.
+  * `bsr_matmul_f32` — the CUDA kernel K6 (`ops/kernels/block_sparse.py`)
+    over the same packing, one thread per row; the fast path of Krylov
+    iterations (`BlockSparseAffineOperator.bind`).
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import torch
 
 from morfem_tpu_torch.device import resolve_device
 from morfem_tpu_torch.ops.kernels.block_sparse import (
-    block_row_pointers,
     bsr_matmul_f32,
+    pack_sectors,
+    sector_matmul_plain,
 )
 
 
@@ -73,33 +76,15 @@ def bsr_from_scipy(
     return vals, brows, bcols, nbr, nbc
 
 
-def bsr_matmul(vals, brows, bcols, nbr: int, nbc: int, n: int,
-               x: torch.Tensor) -> torch.Tensor:
-    """y = A·x in x's dtype: gather x blocks, batched product, per-block-row
-    sum. vals [nb, BR, BC]; x [N, M] or [N]."""
-    squeeze = x.ndim == 1
-    if squeeze:
-        x = x[:, None]
-    br, bc = vals.shape[-2], vals.shape[-1]
-    m = x.shape[1]
-    xp = torch.zeros((nbc * bc, m), dtype=x.dtype, device=x.device)
-    xp[:n] = x
-    gathered = xp.reshape(nbc, bc, m)[bcols.long()]
-    yb = torch.bmm(vals.to(x.dtype), gathered)
-    y = torch.zeros((nbr, br, m), dtype=x.dtype, device=x.device)
-    y.index_add_(0, brows.long(), yb)
-    y = y.reshape(nbr * br, m)[:n]
-    return y[:, 0] if squeeze else y
-
-
 class BlockSparseAffineOperator:
-    """A(t)·x applications with dense-block storage on a sparse block grid.
+    """A(t)·x applications over the nonzeros of a sparse block grid.
 
     Same surface as `SparseAffineOperator` (`matvec`, `apply_addend`,
     `diagonal`, `bind`, `bind_precise`). The P addends share one union
-    block pattern, so `bind` combines block VALUES elementwise and runs
-    one f32 kernel K6 per apply. ``inflation`` = dense-block storage /
-    union nnz: the price of blocking.
+    block pattern, packed into row sectors once, so `bind` combines
+    sector VALUES elementwise and runs one f32 kernel K6 per apply.
+    ``inflation`` = dense-block storage / union nnz: the price of blocking
+    (the reference's router reads it; the packing stores far less).
     """
 
     def __init__(self, *operands, symmetrize: bool = True,
@@ -117,52 +102,67 @@ class BlockSparseAffineOperator:
         if symmetrize:
             mats = [(m + m.T) * 0.5 for m in mats]
         n = mats[0].shape[0]
-        vals, brows, bcols, nbr, nbc = bsr_from_scipy(
-            mats, n, block_rows, block_cols
-        )
         self.n = n
         self.br, self.bc = block_rows, block_cols
-        self.nbr, self.nbc = nbr, nbc
-        self.brows = torch.as_tensor(brows, device=dev)
-        self.bcols = torch.as_tensor(bcols, device=dev)
-        self.rowptr = block_row_pointers(self.brows, nbr)
-        self.vals_w = torch.as_tensor(vals, device=dev)  # [P, nb, BR, BC]
-        nnz_union = int(sum(abs(m) for m in mats).nnz)
-        self.inflation = vals[0].size / max(nnz_union, 1)
+        self.nbr, self.nbc = -(-n // block_rows), -(-n // block_cols)
+        union = sum(abs(m) for m in mats).tocsr()
+        union.sort_indices()
+        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(union.indptr))
+        keys = rows * n + union.indices
+        nz = np.zeros((len(mats), keys.size))
+        for p, m in enumerate(mats):
+            coo = m.tocoo()
+            stored = coo.data != 0  # explicit zeros may be off the union
+            np.add.at(nz[p], np.searchsorted(
+                keys, coo.row[stored].astype(np.int64) * n
+                + coo.col[stored]), coo.data[stored])
+        # [P, nsec, 8] working-dtype values per addend, on the device
+        self.sectors = pack_sectors(
+            torch.from_numpy(rows).to(dev),
+            torch.from_numpy(union.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(nz).to(dev), n)
+        # the blocks `bsr_from_scipy` would store: the union's, plus one
+        # filler block in each block row that has none
+        bkeys = np.unique(rows // block_rows * self.nbc
+                          + union.indices // block_cols)
+        nb = bkeys.size + self.nbr - np.unique(bkeys // self.nbc).size
+        self.inflation = nb * block_rows * block_cols / max(keys.size, 1)
         self.diags = torch.stack(
             [torch.as_tensor(m.diagonal(), dtype=torch.float64)
              for m in mats]).to(dev)  # [P, N]
 
     @property
     def n_addends(self) -> int:
-        return self.vals_w.shape[0]
+        return self.sectors.vals.shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.vals_w.device
+        return self.sectors.vals.device
 
-    def _combined(self, c: torch.Tensor) -> torch.Tensor:
-        return torch.tensordot(c.to(self.vals_w.dtype), self.vals_w, dims=1)
+    def _combined(self, c: torch.Tensor):
+        """The packing of Σ_p c_p·A_p (sector values [nsec, W])."""
+        vals = self.sectors.vals
+        return self.sectors._replace(
+            vals=torch.tensordot(c.to(vals.dtype), vals, dims=1))
 
     def bind(self, c: torch.Tensor):
-        """f32 kernel K6, block values combined once — Krylov loops."""
-        nb = self.brows.shape[0]
-        vals2d = self._combined(c).to(torch.float32).reshape(
-            nb * self.br, self.bc)
+        """f32 kernel K6, sector values combined once — Krylov loops."""
+        packing = self._combined(c)
+        packing = packing._replace(
+            vals=packing.vals.to(torch.float32).contiguous())
 
         def mv(x):
             return bsr_matmul_f32(
-                vals2d, self.brows, self.bcols, self.nbr, self.nbc, self.n,
-                self.br, self.bc, x, rowptr=self.rowptr,
+                None, None, None, self.nbr, self.nbc, self.n, self.br,
+                self.bc, x, packing=packing,
             ).to(x.dtype)
 
         return mv
 
     def bind_precise(self, c: torch.Tensor):
         """Working-dtype (f64) path, combined once — residuals."""
-        vals = self._combined(c)
-        return lambda x: bsr_matmul(vals, self.brows, self.bcols, self.nbr,
-                                    self.nbc, self.n, x)
+        packing = self._combined(c)
+        return lambda x: sector_matmul_plain(packing, x)
 
     def matvec(self, c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Working-dtype exact apply (the GMRES operator)."""
@@ -170,8 +170,8 @@ class BlockSparseAffineOperator:
 
     def apply_addend(self, p: int, x: torch.Tensor) -> torch.Tensor:
         """A_p·x for one (pre-symmetrized) addend in working dtype."""
-        return bsr_matmul(self.vals_w[p], self.brows, self.bcols, self.nbr,
-                          self.nbc, self.n, x)
+        return sector_matmul_plain(
+            self.sectors._replace(vals=self.sectors.vals[p]), x)
 
     def diagonal(self, c: torch.Tensor) -> torch.Tensor:
         return torch.tensordot(c.to(self.diags.dtype), self.diags, dims=1)

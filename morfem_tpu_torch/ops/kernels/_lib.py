@@ -54,10 +54,11 @@ _SIGNATURES = {
     + [_c_float, _c_void_p],
     "morfem_gather_rows": [_c_void_p] * 3 + [_c_int] * 4 + [_c_int64] * 2
     + [_c_void_p],
-    "morfem_gj_sweep": [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p],
+    "morfem_gj_sweep_warp": [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p],
+    "morfem_gj_sweep_block": [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p],
     "morfem_banded_matvec": [_c_void_p, _c_int64, _c_void_p, _c_void_p]
     + [_c_int] * 4 + [_c_void_p],
-    "morfem_bsr_spmm": [_c_void_p] * 5 + [_c_int] * 3 + [_c_void_p],
+    "morfem_bsr_spmm": [_c_void_p] * 5 + [_c_int] * 2 + [_c_void_p],
 }
 
 

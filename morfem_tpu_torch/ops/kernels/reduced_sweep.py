@@ -9,7 +9,10 @@ lowest row index winning a tie), in f32, without materialising the
 [I, K, K] batch in device memory.
 
 `gauss_jordan_sweep_solve` is the kernel's wrapper: a CPU tensor takes
-`gauss_jordan_sweep_solve_plain`, a CUDA tensor launches the kernel.
+`gauss_jordan_sweep_solve_plain`, a CUDA tensor launches the kernel in
+one of its two variants, picked by `sweep_variant` from (K, M) alone: one
+warp per point for K ≤ 64 and M ≤ 8 (the waveguide's K = 40, M = 2), one
+thread block per point otherwise.
 `fused_reduced_sweep` is the reduced sweep of `mor/reduced.py::sweep`
 under ``use_pallas_reduced_sweep=True`` (the reference's
 `pallas_reduced_sweep`): the f32 solve plus a fixed
@@ -22,6 +25,16 @@ from __future__ import annotations
 import torch
 
 from morfem_tpu_torch.ops.kernels import _lib
+
+WARP_MAX_K, WARP_MAX_M = 64, 8  # the warp variant's register budget
+
+
+def sweep_variant(k: int, m: int) -> str:
+    """The K4 variant that solves K×K systems with M right-hand sides:
+    ``"warp"`` (one warp per point, rows in registers) for K ≤ 64 and
+    M ≤ 8, else ``"block"`` (one thread block per point, A in shared
+    memory)."""
+    return "warp" if k <= WARP_MAX_K and m <= WARP_MAX_M else "block"
 
 
 def _prep(r0, r1, r2, c, rhs, inactive_diag, symmetrize):
@@ -111,9 +124,10 @@ def gauss_jordan_sweep_solve(
     x = torch.empty_like(rhs32)
     lib = _lib.load()
     lib.call(
-        "morfem_gj_sweep", r0p.data_ptr(), r1p.data_ptr(), r2p.data_ptr(),
-        c32.data_ptr(), rhs32.data_ptr(), diag.data_ptr(), x.data_ptr(),
-        i_pts, k, m, _lib.stream_handle(rhs32),
+        f"morfem_gj_sweep_{sweep_variant(k, m)}", r0p.data_ptr(),
+        r1p.data_ptr(), r2p.data_ptr(), c32.data_ptr(), rhs32.data_ptr(),
+        diag.data_ptr(), x.data_ptr(), i_pts, k, m,
+        _lib.stream_handle(rhs32),
     )
     gauss_jordan_sweep_solve.launches += 1
     return x
@@ -146,11 +160,14 @@ def fused_reduced_sweep(rm, ts, config) -> torch.Tensor:
     rhs = cb[:, None, None] * (rm.b_r * mask[:, None])
     inactive = 1.0 - mask
     ops = (rm.r0, rm.r1, rm.r2)
+    # the kernel's f32 operands once for all the solves (the wrapper's own
+    # cast, then symmetrize), so that each solve only casts its rhs
+    r0s, r1s, r2s, c32, _, diag32 = _prep(*ops, c, rhs, inactive,
+                                          config.symmetrize)
 
     def solve(r):
         return gauss_jordan_sweep_solve(
-            rm.r0, rm.r1, rm.r2, c, r, inactive,
-            symmetrize=config.symmetrize,
+            r0s, r1s, r2s, c32, r, diag32, symmetrize=False,
         ).to(rhs.dtype)
 
     def residual(x):

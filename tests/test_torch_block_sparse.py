@@ -21,8 +21,15 @@ from morfem_tpu_torch.ops import block_tridiag as tbt
 from morfem_tpu_torch.ops import ell as tell
 from morfem_tpu_torch.ops.kernels import (
     bsr_matmul_f32,
+    bsr_matmul_f32_plain,
     launch_counts,
     reset_launch_counts,
+)
+from morfem_tpu_torch.ops.kernels.block_sparse import (
+    SECTOR_WIDTH,
+    bsr_pack_sectors,
+    pack_sectors,
+    sector_matmul_plain,
 )
 from morfem_tpu_torch.ops.sparse import SparseAffineOperator
 
@@ -113,6 +120,139 @@ def test_bsr_kernel_plain_matches_pallas(case):
     if case == "empty_block_rows":
         assert np.abs(got[64:128]).max() == 0.0
     np.testing.assert_allclose(got, a @ x, atol=1e-5 * scale)
+
+
+def _straddling_matrix(n, rng):
+    """Random sparsity plus rows whose nonzeros cross the 128-column block
+    edge and reach column N − 2 (sectors over block edges and past N)."""
+    a = sp.lil_matrix(_random_sparse(n, rng))
+    for r in range(0, n, 4):
+        a[r, 126], a[r, 130], a[r, n - 2] = 1.25, -0.5, 2.0
+    return a.tocsr()
+
+
+def _matrix(case, n, rng):
+    return {"random": _random_sparse, "empty_block_rows": _empty_rows_matrix,
+            "straddling": _straddling_matrix}[case](n, rng)
+
+
+def _pack(source, a, n, dtype=np.float64):
+    """The matrix's packing, from its stored blocks or from its nonzeros."""
+    if source == "blocks":
+        vals, brows, bcols, _, _ = tbs.bsr_from_scipy([a], n)
+        return bsr_pack_sectors(torch.from_numpy(vals[0].astype(dtype)),
+                                brows, bcols, n)
+    coo = a.tocsr().tocoo()
+    return pack_sectors(torch.from_numpy(coo.row.astype(np.int64)),
+                        torch.from_numpy(coo.col.astype(np.int64)),
+                        torch.from_numpy(coo.data.astype(dtype)), n)
+
+
+@pytest.mark.parametrize("source", ["blocks", "nonzeros"])
+@pytest.mark.parametrize("case", ["random", "empty_block_rows", "straddling"])
+def test_sector_packing_holds_every_nonzero_once(case, source):
+    rng = np.random.default_rng(2)
+    n, width = 260, SECTOR_WIDTH
+    a = _matrix(case, n, rng)
+    pk = _pack(source, a, n)
+    assert tuple(pk.vals.shape[1:]) == (width,) and pk.n == n
+    assert pk.vals.dtype == torch.float64
+    rows = np.repeat(np.arange(n), np.diff(_np(pk.rowptr)))
+    starts = _np(pk.cols).astype(np.int64)
+    # the values put back where they came from: the matrix, exactly
+    dense = np.zeros((n, n + width))
+    for s, (r, c0) in enumerate(zip(rows, starts)):
+        dense[r, c0:c0 + width] = _np(pk.vals[s])
+    np.testing.assert_array_equal(dense[:, :n], a.toarray())
+    assert not dense[:, n:].any()
+    # greedy: each sector starts at a nonzero column, sectors of a row are
+    # disjoint and in column order, and none is stored empty
+    assert (a[rows, starts] != 0).all()
+    same_row = rows[1:] == rows[:-1]
+    assert (starts[1:][same_row] >= starts[:-1][same_row] + width).all()
+    aligned = np.unique(a.tocoo().row.astype(np.int64) * n
+                        + a.tocoo().col // width * width).size
+    assert pk.cols.numel() <= aligned
+    if case == "straddling":
+        assert ((starts < 128) & (starts + width > 128)).any()
+        assert (starts + width > n).any()
+    # one greedy cover, whichever storage it was packed from
+    other = _pack({"blocks": "nonzeros", "nonzeros": "blocks"}[source], a, n)
+    for t, u in zip(pk, other):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.parametrize("source", ["blocks", "nonzeros"])
+@pytest.mark.parametrize("case", ["random", "empty_block_rows", "straddling"])
+def test_sector_matmul_matches_blocks_and_pallas(case, source):
+    rng = np.random.default_rng(4)
+    n = 260
+    a = _matrix(case, n, rng)
+    vals, brows, bcols, nbr, nbc = tbs.bsr_from_scipy([a], n)
+    vals2d = vals[0].astype(np.float32).reshape(-1, 128)
+    x = rng.standard_normal((n, 3))
+    pk = _pack(source, a, n, np.float32)
+    assert pk.vals.dtype == torch.float32
+    blocks = (torch.from_numpy(vals2d), torch.from_numpy(brows),
+              torch.from_numpy(bcols), nbr, nbc, n, 32, 128)
+    reset_launch_counts()
+    got = _np(bsr_matmul_f32(*blocks, torch.from_numpy(x), packing=pk))
+    assert launch_counts()["bsr_matmul_f32"] == 0  # CPU: plain version
+    np.testing.assert_array_equal(
+        got, _np(sector_matmul_plain(pk, torch.from_numpy(x).float())))
+    ref = _np(bsr_matmul_f32_plain(*blocks, torch.from_numpy(x)))
+    pallas = np.asarray(jbs.bsr_matmul_pallas(
+        jnp.asarray(vals2d), jnp.asarray(brows), jnp.asarray(bcols), nbr,
+        nbc, n, 32, 128, jnp.asarray(x), interpret=True))
+    # f32 products summed per row in another order than the blocks'
+    # batched product or the reference's dot: 1e-6 of Σ|A|·|x|
+    scale = (abs(a) @ np.abs(x)).max()
+    assert np.abs(got - ref).max() <= 1e-6 * scale
+    assert np.abs(got - pallas).max() <= 1e-6 * scale
+    # in f64 (the operator's precise path) it is the matrix's product
+    pk64 = _pack(source, a, n)
+    np.testing.assert_allclose(
+        _np(sector_matmul_plain(pk64, torch.from_numpy(x))), a @ x,
+        rtol=0, atol=1e-13 * scale)
+    y1 = sector_matmul_plain(pk64, torch.from_numpy(x[:, 0]))
+    assert tuple(y1.shape) == (n,)
+
+
+def test_block_sparse_operator_bind_matches_the_reference():
+    rng = np.random.default_rng(6)
+    n = 300
+    mats = [_random_sparse(n, rng) for _ in range(3)]
+    op_t = tbs.BlockSparseAffineOperator(*mats, device=CPU)
+    op_j = jbs.BlockSparseAffineOperator(*mats)
+    c = np.array([0.4, -1.1, 1.7])
+    x = rng.standard_normal((n, 2))
+    got = _np(op_t.bind(torch.from_numpy(c))(torch.from_numpy(x)))
+    # the reference's bind runs its Pallas kernel (interpret mode here)
+    ref = np.asarray(op_j.bind(jnp.asarray(c))(jnp.asarray(x)))
+    dense = sum(c[p] * abs((m + m.T) * 0.5) for p, m in enumerate(mats))
+    scale = (abs(dense) @ np.abs(x)).max()
+    # both apply the f32 combined operator, summed in other orders
+    assert np.abs(got - ref).max() <= 1e-6 * scale
+    # the packing holds the union of the addends' patterns
+    union = sum(abs((m + m.T) * 0.5) for m in mats)
+    assert int((op_t.sectors.vals != 0).any(0).sum()) == union.nnz
+
+
+@pytest.mark.parametrize("case", ["random", "empty_block_rows", "straddling"])
+def test_block_sparse_operator_packs_its_nonzeros(case):
+    """The operator packs its CSR nonzeros as the blocks would be packed,
+    and reports the blocks' inflation as the reference does."""
+    rng = np.random.default_rng(8)
+    n = 260
+    mats = [_matrix(case, n, rng), _random_sparse(n, rng)]
+    op_t = tbs.BlockSparseAffineOperator(*mats, device=CPU)
+    sym = [(m + m.T) * 0.5 for m in mats]
+    vals, brows, bcols, _, _ = tbs.bsr_from_scipy(sym, n)
+    ref = bsr_pack_sectors(torch.from_numpy(vals), brows, bcols, n)
+    assert tuple(op_t.sectors.vals.shape[:1]) == (2,)
+    for t, u in zip(op_t.sectors, ref):
+        assert torch.equal(t, u)
+    assert op_t.inflation == jbs.BlockSparseAffineOperator(*mats).inflation
 
 
 def test_block_sparse_operator_matches():

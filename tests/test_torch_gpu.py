@@ -98,6 +98,10 @@ def test_reduced_sweep_kernel(cuda, k, i_pts, m):
     inactive = torch.zeros(k, dtype=torch.float64, device=cuda)
     inactive[k - 2:] = 1.0  # two masked columns
     rhs[:, k - 2:] = 0.0
+    from morfem_tpu_torch.ops.kernels.reduced_sweep import sweep_variant
+
+    # K ≤ 64 (and M ≤ 8) runs the warp variant, K = 84 the block variant
+    assert sweep_variant(k, m) == ("block" if k > 64 else "warp")
     for sym in (True, False):
         reset_launch_counts()
         got = gauss_jordan_sweep_solve(*rs, c, rhs, inactive, symmetrize=sym)
@@ -166,6 +170,142 @@ def test_block_sparse_kernel(cuda, m):
     assert got1.shape == (n,)
 
 
+@pytest.mark.parametrize("pack_on", ["cpu", "cuda"])
+def test_block_sparse_kernel_sectors_across_block_edges(cuda, pack_on):
+    import scipy.sparse as sp
+
+    from morfem_tpu_torch.ops.block_sparse import bsr_from_scipy
+    from morfem_tpu_torch.ops.kernels import (
+        bsr_matmul_f32,
+        bsr_matmul_f32_plain,
+    )
+    from morfem_tpu_torch.ops.kernels.block_sparse import (
+        SECTOR_WIDTH,
+        bsr_pack_sectors,
+    )
+
+    rng = np.random.default_rng(8)
+    n = 301  # ragged: the last sectors run past column N − 1
+    a = sp.lil_matrix(sp.random(n, n, density=0.02, random_state=8))
+    for r in range(0, n, 3):
+        a[r, 126], a[r, 129] = 1.5, -2.5  # one sector over columns 126–133
+        a[r, n - 2] = 0.5
+    vals, brows, bcols, nbr, nbc = bsr_from_scipy([a.tocsr()], n)
+    blocks32 = torch.from_numpy(vals[0].astype(np.float32))
+    on_cpu = bsr_pack_sectors(blocks32, brows, bcols, n)
+    # the packing made on the card is the one made on the CPU
+    packing = bsr_pack_sectors(blocks32.to(pack_on), brows, bcols, n)
+    for t, u in zip(packing, on_cpu):
+        assert torch.equal(t.cpu(), u)
+    starts = on_cpu.cols.long()
+    assert bool(((starts < 128) & (starts + SECTOR_WIDTH > 128)).any())
+    assert bool((starts + SECTOR_WIDTH > n).any())
+    packing = type(packing)(*(t.to(cuda) for t in packing))
+    vals2d = _t(vals[0].reshape(-1, 128).astype(np.float32), cuda)
+    brows, bcols = _t(brows, cuda), _t(bcols, cuda)
+    for m in (2, 11):
+        x = _t(rng.standard_normal((n, m)), cuda)
+        got = bsr_matmul_f32(vals2d, brows, bcols, nbr, nbc, n, 32, 128, x,
+                             packing=packing)
+        ref = bsr_matmul_f32_plain(vals2d, brows, bcols, nbr, nbc, n, 32,
+                                   128, x)
+        scale = bsr_matmul_f32_plain(vals2d.abs(), brows, bcols, nbr, nbc,
+                                     n, 32, 128, x.abs()).max()
+        assert (got - ref).abs().max() <= 1e-5 * scale
+
+
+def _gj_pencil(k, i_pts, m, dev, seed):
+    """Diagonally dominant R0, two inactive columns, as the reduced model
+    leaves them; coefficients and right-hand sides per point."""
+    rng = np.random.default_rng(seed)
+    rs = [_t(rng.standard_normal((k, k)), dev) for _ in range(3)]
+    rs[0] = rs[0] + 3 * k * torch.eye(k, dtype=torch.float64, device=dev)
+    c = _t(rng.uniform(0.5, 2.0, (i_pts, 3)), dev)
+    rhs = _t(rng.standard_normal((i_pts, k, m)), dev)
+    inactive = torch.zeros(k, dtype=torch.float64, device=dev)
+    inactive[k - 2:] = 1.0
+    rhs[:, k - 2:] = 0.0
+    return rs, c, rhs, inactive
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("k", [12, 32, 33, 40, 48, 64])
+def test_reduced_sweep_warp_variant(cuda, k, m):
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve,
+        gauss_jordan_sweep_solve_plain,
+    )
+    from morfem_tpu_torch.ops.kernels.reduced_sweep import sweep_variant
+
+    assert sweep_variant(k, m) == "warp"
+    # 130 points: the last block of 4 warps holds 2
+    rs, c, rhs, inactive = _gj_pencil(k, 130, m, cuda, seed=10 * k + m)
+    for sym in (True, False):
+        reset_launch_counts()
+        got = gauss_jordan_sweep_solve(*rs, c, rhs, inactive, symmetrize=sym)
+        ref = gauss_jordan_sweep_solve_plain(*rs, c, rhs, inactive,
+                                             symmetrize=sym)
+        torch.cuda.synchronize()
+        assert launch_counts()["gauss_jordan_sweep_solve"] == 1
+        assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+@pytest.mark.parametrize("rows", [(5, 20), (3, 35), (33, 39)])
+def test_reduced_sweep_warp_variant_pivot_tie(cuda, rows):
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve,
+        gauss_jordan_sweep_solve_plain,
+    )
+
+    # |10| twice in column 0, in two lanes, in one lane's two rows (3 and
+    # 35) or in two lanes' second rows: the lower row wins
+    k = 40
+    rng = np.random.default_rng(sum(rows))
+    a = rng.uniform(-1.0, 1.0, (k, k)) + 4.0 * np.eye(k)
+    a[:, 0] = rng.uniform(-1.0, 1.0, k)
+    a[rows[0], 0], a[rows[1], 0] = -10.0, 10.0
+    a, zero = _t(a, cuda), torch.zeros((k, k), dtype=torch.float64,
+                                       device=cuda)
+    b = _t(rng.standard_normal((3, k, 2)), cuda)
+    args = (a, zero, zero, _t(np.tile([1.0, 0.0, 0.0], (3, 1)), cuda), b,
+            torch.zeros(k, dtype=torch.float64, device=cuda))
+    got = gauss_jordan_sweep_solve(*args, symmetrize=False)
+    ref = gauss_jordan_sweep_solve_plain(*args, symmetrize=False)
+    assert torch.equal(got, ref)
+    # the other row winning changes the f32 result
+    swap = list(range(k))
+    swap[rows[0]], swap[rows[1]] = rows[1], rows[0]
+    other = gauss_jordan_sweep_solve(a[swap], zero, zero, args[3],
+                                     b[:, swap], args[5], symmetrize=False)
+    assert not torch.equal(other, got)
+
+
+@pytest.mark.parametrize("where", ["column", "point"])
+def test_reduced_sweep_warp_variant_nan(cuda, where):
+    from morfem_tpu_torch.ops.kernels import (
+        gauss_jordan_sweep_solve,
+        gauss_jordan_sweep_solve_plain,
+    )
+
+    k = 40
+    rs, c, rhs, inactive = _gj_pencil(k, 9, 2, cuda, seed=7)
+    if where == "column":
+        rs[1][:, 7] = float("nan")  # a NaN column at every point
+    else:
+        c[3, 0] = float("nan")  # one point's whole system
+    got = gauss_jordan_sweep_solve(*rs, c, rhs, inactive, symmetrize=False)
+    ref = gauss_jordan_sweep_solve_plain(*rs, c, rhs, inactive,
+                                         symmetrize=False)
+    nan = ref.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(torch.where(nan, 0.0, got), torch.where(nan, 0.0, ref))
+    # a NaN in a pivot column turns the point's whole solution NaN
+    if where == "column":
+        assert bool(nan.all())
+    else:
+        assert bool(nan[3].all()) and not bool(nan[:3].any() or nan[4:].any())
+
+
 def test_reduced_sweep_kernel_pivot_tie(cuda):
     from morfem_tpu_torch.ops.kernels import (
         gauss_jordan_sweep_solve,
@@ -181,6 +321,9 @@ def test_reduced_sweep_kernel_pivot_tie(cuda):
     b = _t(np.array([-1.0, -9, 1, 5])[None, :, None], cuda)
     args = (a, zero, zero, _t(np.array([[1.0, 0.0, 0.0]]), cuda), b,
             torch.zeros(4, dtype=torch.float64, device=cuda))
+    from morfem_tpu_torch.ops.kernels.reduced_sweep import sweep_variant
+
+    assert sweep_variant(4, 1) == "warp"  # the tie is broken in registers
     got = gauss_jordan_sweep_solve(*args, symmetrize=False)
     ref = gauss_jordan_sweep_solve_plain(*args, symmetrize=False)
     assert torch.equal(got, ref)

@@ -120,6 +120,20 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
         gauss_jordan_sweep_solve(*args[:3], _t(c[:, :2]), *args[4:])
 
 
+def test_sweep_variant_is_a_pure_function_of_k_and_m():
+    import inspect
+
+    from morfem_tpu_torch.ops.kernels.reduced_sweep import sweep_variant
+
+    assert list(inspect.signature(sweep_variant).parameters) == ["k", "m"]
+    table = {(1, 1): "warp", (12, 2): "warp", (40, 2): "warp",
+             (64, 8): "warp", (65, 1): "block", (84, 2): "block",
+             (40, 9): "block", (200, 40): "block"}
+    for (k, m), want in table.items():
+        assert sweep_variant(k, m) == want
+        assert sweep_variant(k, m) == sweep_variant(k, m)
+
+
 def _jax_reduced_model(seed=4, n=60, pts=30):
     rng = np.random.default_rng(seed)
     q, _ = np.linalg.qr(rng.standard_normal((n, n)))
