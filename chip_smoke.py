@@ -41,9 +41,12 @@ Each path's kernels are counted from zero over that path's run alone and
 must have launched; the kernels phase (3) holds K4-K6 against their plain
 versions too, at the shapes these paths give them: K4's warp variant at
 the build and serving grids and its block variant at K=84, bit for bit;
-K6 packed on the fly and through the Krylov operator's own packing. K4-K6
-and their library calls are also timed on the device alone (`device_ms`),
-since their time per call is mostly the host's.
+K6 packed on the fly and through the Krylov operator's own packing; K3 at
+each of the panel LU's shapes and views (`k3_inputs`) with int32 and int64
+indices; K5 with float32 and float64 x, and through the operator's `bind`
+as the Krylov loop calls it. K3-K6 and their library calls are also timed on the device
+alone (`device_ms`), beside the launch floor (one tiny PyTorch launch
+timed the same way), since their time per call is mostly the host's.
 
 A watchdog (faulthandler) ends a phase that hangs, with a traceback and a
 non-zero exit; the phase's name is on the last progress line. Any failed
@@ -222,6 +225,9 @@ def kernel_phase(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}  # kernel -> [(principal, record)]
+    floor_ms = launch_floor_ms(dev)
+    print(f"  launch floor (t.add_(1) on one element, device): "
+          f"{_fmt(floor_ms)} ms", flush=True)
 
     def keep(name, principal, **r):
         results.setdefault(name, []).append((principal, r))
@@ -333,35 +339,37 @@ def kernel_phase(dev):
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
              library_ms=lib_ms, shape=[g, m, k, n])
 
-    # K3: pivot rows of the block factor's A12 (principal), pivot rows of
-    # the full-pivot trailing block, the final permutation; exact
-    cases = (
-        ((8, 384, 3072), 384, True),
-        ((8, 3456, 3328), 128, False),
-        ((8, 3456, 3456), 3456, False),
-    )
-    for (g, n, w), p, principal in cases:
-        src = torch.randn((g, n, w), generator=gen, device=dev)
-        idx = torch.stack([
-            torch.randperm(n, generator=gen, device=dev)[:p] for _ in range(g)
-        ]).to(torch.int32)
+    # K3 at the panel LU's shapes and views (`k3_inputs`), with int32
+    # indices (the panel factor's pivots) and again with int64 ones, which
+    # the kernel reads as they are; exact. Per call and on the device
+    # alone, beside advanced indexing (the library call) timed both ways.
+    for label, src, idx, principal in k3_inputs(dev, gen):
+        g, n, w = src.shape
+        p = idx.shape[1]
+        idx64 = idx.long()
         out_k = gather_rows(src, idx)
         out_p = gather_rows_plain(src, idx)
+        out_64 = gather_rows(src, idx64)
         err = float((out_k - out_p).abs().max())
-        check(err == 0.0, f"K3 not exact at {(g, n, w)}")
-        ms = cuda_ms(lambda: gather_rows(src, idx))
+        check(torch.equal(out_k, out_p) and torch.equal(out_64, out_p),
+              f"K3 not exact at {label}")
+        ms = cuda_ms(lambda: gather_rows(src, idx), 20)
+        dev_ms = device_ms(lambda: gather_rows(src, idx))
         plain_ms = cuda_ms(lambda: gather_rows_plain(src, idx))
         batch = torch.arange(g, device=dev)[:, None]
-        idx64 = idx.long()
-        lib_ms = cuda_ms(lambda: src[batch, idx64])
+        lib_ms = cuda_ms(lambda: src[batch, idx64], 20)
+        lib_dev_ms = device_ms(lambda: src[batch, idx64])
         b_ms, b_by = bound(4 * (2 * g * p * w + g * p), 0)
-        print(f"  K3 gather_rows src={[g, n, w]} P={p}: max_abs_err={err} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})",
-              flush=True)
+        print(f"  K3 gather_rows {label}: src={[g, n, w]} strides="
+              f"{list(src.stride())} P={p} max_abs_err={err} "
+              f"kernel_ms={ms:.4f} (device {_fmt(dev_ms)}) plain_ms="
+              f"{plain_ms:.4f} library_ms={lib_ms:.4f} (indexing; device "
+              f"{_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by})", flush=True)
         keep("gather_rows", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib_ms, shape=[g, n, w, p])
+             library_ms=lib_ms, shape=[g, n, w, p], device_ms=dev_ms,
+             library_device_ms=lib_dev_ms)
+        del src, idx, idx64, out_k, out_p, out_64
     _kernels_k4(dev, gen, keep)
     _kernels_k5(dev, gen, keep)
     _kernels_k6(dev, gen, keep)
@@ -374,6 +382,54 @@ def kernel_phase(dev):
             rec[name]["variants"] = [[r["shape"], r["variant"]]
                                      for _, r in rows]
     return rec
+
+
+def launch_floor_ms(dev, reps: int = 50):
+    """Device time of one tiny PyTorch launch (``t.add_(1)`` on a
+    one-element tensor), queued as `device_ms` queues it: the least that
+    one launch costs on this card, the floor of every device time here."""
+    import torch
+
+    one = torch.zeros(1, device=dev)
+    return device_ms(lambda: one.add_(1), reps)
+
+
+def k3_inputs(dev, gen):
+    """K3's inputs as the panel LU passes them: (label, src, idx,
+    principal), idx int32 (the panel factor's pivots), distinct rows.
+
+    The block-pivot LU (the waveguide's path) gathers the diagonal block
+    (contiguous, `ops/panel_lu.py:205`), the factored L21 rows
+    (``out[:, lo:hi, :lo]``, :211) and the A12 rows (``rest[:, :P, P:]``,
+    :214) of [8, 3456, 3456] blocks; the full-pivot LU (escalation only)
+    gathers 128 pivot rows of a trailing block and the final permutation.
+    The last view starts one column off a 16-byte boundary, so K3 copies
+    it with 4-byte loads and stores instead of float4 ones."""
+    import torch
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rows(g, n, p):
+        return torch.stack([torch.randperm(n, generator=gen, device=dev)[:p]
+                            for _ in range(g)]).to(torch.int32)
+
+    g = 8
+    yield "A12 rows [8,384,3072]", rand(g, 384, 3072), rows(g, 384, 384), True
+    yield ("full-pivot rows [8,3456,3328]", rand(g, 3456, 3328),
+           rows(g, 3456, 128), False)
+    yield ("final permutation [8,3456,3456]", rand(g, 3456, 3456),
+           rows(g, 3456, 3456), False)
+    yield ("diagonal block [8,384,384]", rand(g, 384, 384),
+           rows(g, 384, 384), False)
+    big = rand(g, 3456, 3456)
+    yield ("L21 rows out[:, 1536:1920, :1536]", big[:, 1536:1920, :1536],
+           rows(g, 384, 384), False)
+    yield ("A12 rows rest[:, :384, 384:]", big[:, :384, 384:],
+           rows(g, 384, 384), False)
+    del big
+    yield ("misaligned view [:, :, 1:3073] of [8,384,3076]",
+           rand(g, 384, 3076)[:, :, 1:3073], rows(g, 384, 384), False)
 
 
 def _kernels_k4(dev, gen, keep):
@@ -463,9 +519,13 @@ def _band_csr(band, half):
 
 
 def _kernels_k5(dev, gen, keep):
-    """K5 at the Krylov phase's shape: N=34,225, bw=13, M=2."""
+    """K5 at the Krylov phase's shape: N=34,225, bw=13, M=2, with float32
+    x and with float64 x read in the kernel (bit for bit against the plain
+    version either way); then through `BandedAffineOperator.bind` on the
+    Krylov pencil with float64 x, as the BiCGSTAB loop calls it."""
     import torch
 
+    from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
     from morfem_tpu_torch.ops.kernels import (
         banded_matvec_padded, banded_matvec_padded_plain,
     )
@@ -474,10 +534,17 @@ def _kernels_k5(dev, gen, keep):
     bw = 2 * half + 1
     band = torch.randn((n, bw), generator=gen, device=dev)
     x = torch.randn((n, m), generator=gen, device=dev)
+    x64 = torch.randn((n, m), generator=gen, device=dev, dtype=torch.float64)
     out_k = banded_matvec_padded(band, n, bw, half, x)
     out_p = banded_matvec_padded_plain(band, n, bw, half, x)
     err = float((out_k - out_p).abs().max())
-    check(err == 0.0, f"K5 differs from its plain version: {err}")
+    check(torch.equal(out_k, out_p),
+          f"K5 differs from its plain version: {err}")
+    f64 = dict(out_dtype=torch.float64)
+    out_k64 = banded_matvec_padded(band, n, bw, half, x64, **f64)
+    check(out_k64.dtype == torch.float64 and torch.equal(
+        out_k64, banded_matvec_padded_plain(band, n, bw, half, x64, **f64)),
+        "K5 with float64 x differs from its plain version")
     ms = cuda_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
     dev_ms = device_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
     plain_ms = cuda_ms(lambda: banded_matvec_padded_plain(band, n, bw, half,
@@ -486,14 +553,25 @@ def _kernels_k5(dev, gen, keep):
     lib_ms = cuda_ms(lambda: csr @ x, 50)
     lib_dev_ms = device_ms(lambda: csr @ x, 50)
     b_ms, b_by = bound(4 * (n * bw + 2 * n * m), 2 * n * bw * m)
+    # as the Krylov loop calls it: float64 x in, float64 y out
+    op = BandedAffineOperator(*krylov_pencil(n), device=dev)
+    mv = op.bind(torch.tensor([1.0, 0.0, 2.25], dtype=torch.float64,
+                              device=dev))
+    check(mv(x64).dtype == torch.float64, "bind's matvec is not float64")
+    bind_ms = cuda_ms(lambda: mv(x64), 50)
+    bind_dev_ms = device_ms(lambda: mv(x64), 50)
+    b64_ms, _ = bound(4 * n * bw + 8 * 2 * n * m, 2 * n * bw * m)
     print(f"  K5 banded_matvec_padded N={n} bw={bw} M={m}: "
-          f"max_abs_err={err} kernel_ms={ms:.4f} (device {_fmt(dev_ms)}) "
-          f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (CSR @ dense; "
-          f"device {_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by})",
-          flush=True)
+          f"max_abs_err={err} (float64 x: bit for bit) kernel_ms={ms:.4f} "
+          f"(device {_fmt(dev_ms)}) plain_ms={plain_ms:.4f} "
+          f"library_ms={lib_ms:.4f} (CSR @ dense; device {_fmt(lib_dev_ms)}) "
+          f"bound_ms={b_ms:.5f} ({b_by}); through bind with float64 x: "
+          f"{bind_ms:.4f} per call (device {_fmt(bind_dev_ms)}, bound "
+          f"{b64_ms:.5f})", flush=True)
     keep("banded_matvec_padded", True, max_abs_err=err, ms=ms,
          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-         shape=[n, bw, m], device_ms=dev_ms, library_device_ms=lib_dev_ms)
+         shape=[n, bw, m], device_ms=dev_ms, library_device_ms=lib_dev_ms,
+         bind_f64_ms=bind_ms, bind_f64_device_ms=bind_dev_ms)
 
 
 def _kernels_k6(dev, gen, keep):
@@ -1036,8 +1114,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **({"variants": r["variants"]} if "variants" in r else {}),
-            **{key: r[key] for key in ("device_ms", "library_device_ms")
+            **{key: r[key] for key in ("variants",) if key in r},
+            **{key: r[key] for key in ("device_ms", "library_device_ms",
+                                       "bind_f64_ms", "bind_f64_device_ms")
                if key in r},
         })
     print(smi, flush=True)  # name and power limit, as nvidia-smi gives them

@@ -25,7 +25,10 @@ import numpy as np
 import torch
 
 from morfem_tpu_torch.device import resolve_device
-from morfem_tpu_torch.ops.kernels.banded_matvec import banded_matvec_padded
+from morfem_tpu_torch.ops.kernels.banded_matvec import (
+    banded_matvec_padded,
+    bind_banded_matvec,
+)
 
 # Above this many diagonals the reference switches from the per-diagonal
 # forms (its Pallas kernel and its jnp loop, both unrolled per diagonal) to
@@ -210,7 +213,9 @@ class BandedAffineOperator:
 
     def bind(self, c: torch.Tensor):
         """Combine the bands for coefficients c ONCE and return the f32
-        matvec closure (K5 for narrow bands, blocked products for wide)."""
+        matvec closure (K5 for narrow bands, blocked products for wide),
+        which returns y in x's dtype. K5 reads a float32 or float64 x as
+        it is and writes y in that type: one launch per matvec."""
         if self.bw > WIDE_BW:
             band_t = combine_addends(c, self.bands_w).to(torch.float32)
 
@@ -222,14 +227,11 @@ class BandedAffineOperator:
             return mv
         band_p = combine_addends(c, self.bands_p.to(torch.float64)).to(
             torch.float32).contiguous()
+        k5 = bind_banded_matvec(band_p, self.n, self.bw, self.half)
 
         def mv(x):
-            squeeze = x.ndim == 1
-            if squeeze:
-                x = x[:, None]
-            y = banded_matvec_padded(band_p, self.n, self.bw, self.half,
-                                     x).to(x.dtype)
-            return y[:, 0] if squeeze else y
+            y = k5(x[:, None] if x.ndim == 1 else x).to(x.dtype)
+            return y[:, 0] if x.ndim == 1 else y
 
         return mv
 

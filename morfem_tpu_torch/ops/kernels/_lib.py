@@ -10,8 +10,9 @@ and the objects are linked by one more (``nvcc -shared``) into
 ``morfem_tpu_torch/_build/<hash>/libmorfem_kernels.so``, where the hash
 covers the sources and the flags; the library is loaded with `ctypes`.
 Each kernel has an ``extern "C"`` launcher taking raw pointers, sizes and
-the CUDA stream, returning ``cudaGetLastError()``. No PyTorch headers are
-compiled, so the build takes seconds, not minutes.
+the CUDA stream, returning ``cudaGetLastError()``; each is resolved once,
+at load (`KernelLibrary.function`). No PyTorch headers are compiled, so
+the build takes seconds, not minutes.
 
 The build happens at first use (never at import: the CPU tests import
 every module and this machine may have no `nvcc`). It takes no lock: the
@@ -52,12 +53,12 @@ _SIGNATURES = {
     + [_c_void_p],
     "morfem_mm_words": [_c_void_p] * 4 + [_c_int] * 4 + [_c_int64] * 3
     + [_c_float, _c_void_p],
-    "morfem_gather_rows": [_c_void_p] * 3 + [_c_int] * 4 + [_c_int64] * 2
-    + [_c_void_p],
+    "morfem_gather_rows": [_c_void_p, _c_void_p, _c_int, _c_void_p]
+    + [_c_int] * 4 + [_c_int64] * 4 + [_c_void_p],
     "morfem_gj_sweep_warp": [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p],
     "morfem_gj_sweep_block": [_c_void_p] * 7 + [_c_int] * 3 + [_c_void_p],
-    "morfem_banded_matvec": [_c_void_p, _c_int64, _c_void_p, _c_void_p]
-    + [_c_int] * 4 + [_c_void_p],
+    "morfem_banded_matvec": [_c_void_p, _c_int64, _c_void_p, _c_int,
+                             _c_void_p, _c_int] + [_c_int] * 4 + [_c_void_p],
     "morfem_bsr_spmm": [_c_void_p] * 5 + [_c_int] * 2 + [_c_void_p],
 }
 
@@ -71,18 +72,26 @@ class KernelLibrary:
         self.path = path
         self.build_seconds = build_seconds
         self.ptxas_log = ptxas_log
+        self._fns = {}
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            self._fns[name] = fn
+
+    def function(self, name: str):
+        """The ctypes launcher `name`, resolved at load; it returns the
+        CUDA error code (pass it to `raise_on_error`)."""
+        return self._fns[name]
 
     def call(self, name: str, *args) -> None:
         """Launch through `name`; raise if the launcher reports an error."""
-        err = getattr(self.lib, name)(*args)
-        if err != 0:
-            raise RuntimeError(
-                f"{name} failed to launch: CUDA error {err}"
-            )
+        raise_on_error(name, self._fns[name](*args))
+
+
+def raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
 
 
 _LOADED: dict = {}
@@ -171,9 +180,13 @@ def load() -> KernelLibrary:
 
 
 def stream_handle(t) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on t's device."""
+    """The raw cudaStream_t of PyTorch's current stream on t's device (the
+    raw query, where PyTorch has it, builds no Stream object per call)."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -6,7 +6,9 @@ rows of each trailing block and applies the final permutation with it.
 
 The input contract is the reference's (f32 source, P a multiple of 128, N
 a multiple of 8, W a multiple of 128), so both packages reject the same
-inputs; the source may be a strided view with a unit column stride.
+inputs; the source may be a strided view with a unit column stride, and
+the indices int32 or int64 at any strides (the kernel reads them as they
+are; other integer types are widened to int64 first).
 A CPU tensor takes `gather_rows_plain`; a CUDA tensor launches the kernel.
 """
 
@@ -46,6 +48,9 @@ def gather_rows_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return src[batch, idx.long()]
 
 
+_IDX_BYTES = {torch.int32: 4, torch.int64: 8}
+
+
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Batched row gather → [G, P, W]; exact."""
     if src.device.type == "cpu":
@@ -56,15 +61,15 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("idx must be on the same device as src")
     if src.stride(2) != 1:
         raise ValueError("gather_rows needs a unit column stride in src")
-    idx32 = idx.to(torch.int32).contiguous()
+    if idx.dtype not in _IDX_BYTES:
+        idx = idx.long()
     g, n, w = src.shape
     p = idx.shape[1]
     out = torch.empty((g, p, w), dtype=torch.float32, device=src.device)
-    lib = _lib.load()
-    lib.call(
-        "morfem_gather_rows", src.data_ptr(), idx32.data_ptr(),
-        out.data_ptr(), g, n, p, w, src.stride(0), src.stride(1),
-        _lib.stream_handle(src),
+    _lib.load().call(
+        "morfem_gather_rows", src.data_ptr(), idx.data_ptr(),
+        _IDX_BYTES[idx.dtype], out.data_ptr(), g, n, p, w, src.stride(0),
+        src.stride(1), idx.stride(0), idx.stride(1), _lib.stream_handle(src),
     )
     gather_rows.launches += 1
     return out

@@ -19,9 +19,11 @@ from morfem_tpu_torch.ops import banded_matvec as tbm
 from morfem_tpu_torch.ops import block_tridiag as tbt
 from morfem_tpu_torch.ops.kernels import (
     banded_matvec_padded,
+    banded_matvec_padded_plain,
     launch_counts,
     reset_launch_counts,
 )
+from morfem_tpu_torch.ops.kernels.banded_matvec import bind_banded_matvec
 from morfem_tpu_torch.utils.synthetic import banded_waveguide_system
 
 CPU = "cpu"
@@ -100,6 +102,35 @@ def test_banded_matvec_padded_takes_padded_and_plain_layouts():
         banded_matvec_padded(band, 77, 5, 1, x)  # bw != 2·half+1
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float64, torch.float32])
+def test_banded_matvec_out_dtype_is_the_cast_of_the_f32_result(x_dtype):
+    # out_dtype=float64 is the old `.to(torch.float64)` after the f32
+    # matvec, bit for bit; the bound closure gives the same
+    rng = np.random.default_rng(11)
+    n, half = 333, 6
+    band = torch.from_numpy(rng.standard_normal((n, 13)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((n, 3))).to(x_dtype)
+    f32 = banded_matvec_padded_plain(band, n, 13, half, x)
+    assert f32.dtype == torch.float32
+    for out in (torch.float64, torch.float32):
+        got = banded_matvec_padded_plain(band, n, 13, half, x,
+                                         out_dtype=out)
+        assert got.dtype == out and torch.equal(got, f32.to(out))
+        bound = bind_banded_matvec(band, n, 13, half)
+        assert torch.equal(bound(x, out), got)
+        if out == x_dtype:  # by default the closure writes x's type
+            assert torch.equal(bound(x), got)
+        assert torch.equal(banded_matvec_padded(band, n, 13, half, x, out),
+                           got)
+    with pytest.raises(ValueError):
+        banded_matvec_padded_plain(band, n, 13, half, x,
+                                   out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        bind_banded_matvec(band, n, 13, half)(x[:-1])  # wrong N
+    with pytest.raises(ValueError):
+        bind_banded_matvec(band, n, 13, 5)  # bw != 2·half+1
+
+
 def test_wide_band_blocked_matvec_matches():
     # bw = 2·60+1 = 121 > WIDE_BW: both packages take the blocked form
     rng = np.random.default_rng(5)
@@ -121,7 +152,8 @@ def test_wide_band_blocked_matvec_matches():
     np.testing.assert_allclose(got, a @ x, atol=1e-11 * np.abs(a @ x).max())
 
 
-def test_operator_bind_routes_like_the_reference():
+@pytest.mark.parametrize("x_dtype", [np.float64, np.float32])
+def test_operator_bind_routes_like_the_reference(x_dtype):
     a0, a1, a2 = _banded_pencil(n=200, half=6, seed=2)
     op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
     op_j = jbm.BandedAffineOperator(a0, a1, a2)
@@ -129,10 +161,16 @@ def test_operator_bind_routes_like_the_reference():
     np.testing.assert_array_equal(_np(op_t.bands_w), np.asarray(op_j.bands_w))
     c = np.array([1.0, 0.0, 2.3])
     x = np.random.default_rng(0).standard_normal((200, 2))
-    fast_t = _np(op_t.bind(torch.from_numpy(c))(torch.from_numpy(x)))
+    # K5 reads x in its own type and writes y in it (out_dtype=x.dtype)
+    fast_t = _np(op_t.bind(torch.from_numpy(c))(
+        torch.from_numpy(x.astype(x_dtype))))
     fast_j = np.asarray(op_j.bind(jnp.asarray(c))(jnp.asarray(x)))
-    assert fast_t.dtype == np.float64  # f32 kernel, cast back to x's dtype
+    assert fast_t.dtype == x_dtype
     assert np.abs(fast_t - fast_j).max() <= 1e-5 * np.abs(fast_j).max()
+    # a 1-D x keeps its shape
+    fast_1 = _np(op_t.bind(torch.from_numpy(c))(
+        torch.from_numpy(x[:, 1].astype(x_dtype))))
+    np.testing.assert_array_equal(fast_1, fast_t[:, 1])
     prec_t = _np(op_t.bind_precise(torch.from_numpy(c))(torch.from_numpy(x)))
     dense = (a0 + 2.3 * a2).toarray()
     np.testing.assert_allclose(prec_t, dense @ x, rtol=1e-13, atol=1e-12)

@@ -15,6 +15,7 @@ main path's shapes are checked by chip_smoke.py).
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from morfem_tpu_torch.ops.kernels import (
     gather_rows,
@@ -83,6 +84,49 @@ def test_gather_rows_kernel(cuda):
     assert torch.equal(gather_rows(view, idx), gather_rows_plain(view, idx))
 
 
+# (W, first column of the view): P=384 rows of strided views as the
+# block-pivot LU passes them, copied with float4 loads and stores; a column
+# offset that is no multiple of 4 floats takes the kernel's 4-byte copies
+@pytest.mark.parametrize("w,col0", [
+    (384, 0), (3072, 384), (4352, 0), (384, 1), (3072, 3),
+])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gather_rows_kernel_paths(cuda, w, col0, idx_dtype):
+    rng = np.random.default_rng(w + col0)
+    g, n, p = 3, 392, 384
+    big = _t(rng.standard_normal((g, n + 8, w + col0 + 4))
+             .astype(np.float32), cuda)
+    src = big[:, 8:, col0:col0 + w]
+    idx = np.stack([rng.permutation(n)[:p] for _ in range(g)])
+    # contiguous indices, and a strided view of the same indices
+    pairs = _t(np.stack([idx, idx], axis=2).reshape(g, 2 * p), cuda)
+    for ix in (_t(idx, cuda).to(idx_dtype), pairs.to(idx_dtype)[:, ::2]):
+        reset_launch_counts()
+        got = gather_rows(src, ix)
+        torch.cuda.synchronize()
+        assert launch_counts()["gather_rows"] == 1
+        assert torch.equal(got, gather_rows_plain(src, ix))
+
+
+@pytest.mark.parametrize("col0", [0, 1])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_gather_rows_kernel_out_of_range_index_writes_nan(cuda, col0,
+                                                         idx_dtype):
+    rng = np.random.default_rng(5 + col0)
+    g, n, p, w = 2, 256, 128, 512
+    big = _t(rng.standard_normal((g, n, w + 4)).astype(np.float32), cuda)
+    src = big[:, :, col0:col0 + w]
+    idx = np.stack([rng.permutation(n)[:p] for _ in range(g)])
+    idx[0, 5], idx[1, 127] = n, -1
+    ix = _t(idx, cuda).to(idx_dtype)
+    got = gather_rows(src, ix)
+    ref = gather_rows_plain(src, ix.clamp(0, n - 1))
+    ref[0, 5], ref[1, 127] = float("nan"), float("nan")
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert bool(got[0, 5].isnan().all() and got[1, 127].isnan().all())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+
+
 @pytest.mark.parametrize("k,i_pts,m", [(12, 37, 2), (84, 100, 2), (37, 5, 3)])
 def test_reduced_sweep_kernel(cuda, k, i_pts, m):
     from morfem_tpu_torch.ops.kernels import (
@@ -111,6 +155,101 @@ def test_reduced_sweep_kernel(cuda, k, i_pts, m):
         assert launch_counts()["gauss_jordan_sweep_solve"] == 1
         # the same pivots and the same roundings, step for step
         assert torch.equal(got, ref), float((got - ref).abs().max())
+
+
+class _AtenOps(TorchDispatchMode):
+    """The ATen operators a call dispatches (casts and copies show here)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+# N = 384 fills whole 128-row tiles, 1000 / 777 / 300 leave a ragged one;
+# half=47 (bw=95) with 64 float64 columns takes more than 48 KB of shared
+# memory (the launcher opts in)
+@pytest.mark.parametrize("n,half", [(1000, 6), (777, 0), (300, 47), (384, 6)])
+@pytest.mark.parametrize("m", [1, 2, 3, 64, 65])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+def test_banded_matvec_kernel_reads_x_in_its_type(cuda, n, half, m,
+                                                  x_dtype):
+    from morfem_tpu_torch.ops.kernels import (
+        banded_matvec_padded,
+        banded_matvec_padded_plain,
+    )
+    from morfem_tpu_torch.ops.kernels.banded_matvec import (
+        bind_banded_matvec,
+    )
+
+    rng = np.random.default_rng(n + half + m)
+    bw = 2 * half + 1
+    band = _t(rng.standard_normal((n, bw)).astype(np.float32), cuda)
+    padded = torch.zeros((1024, 128), dtype=torch.float32, device=cuda)
+    padded[:n, :bw] = band
+    xs = _t(rng.standard_normal((n + 1, m)), cuda).to(x_dtype)
+    # x from a 16-byte boundary, and x one row further on (its halo's
+    # ends then fall off the boundary)
+    for x in (xs[:n], xs[1:]):
+        for b in (band, padded):
+            for out in (torch.float32, x_dtype):
+                reset_launch_counts()
+                got = banded_matvec_padded(b, n, bw, half, x, out_dtype=out)
+                torch.cuda.synchronize()
+                assert launch_counts()["banded_matvec_padded"] == -(-m // 64)
+                ref = banded_matvec_padded_plain(b, n, bw, half, x,
+                                                 out_dtype=out)
+                assert got.dtype == out
+                # diagonals accumulated in one order, products and sums
+                # rounded alike, x rounded alike: bit for bit
+                assert torch.equal(got, ref)
+    # the bound closure: one launch per 64 columns and, within 64 columns,
+    # no other work on the card than the output's allocation (no cast)
+    mv = bind_banded_matvec(band, n, bw, half)
+    x = xs[:n]
+    with _AtenOps() as seen:
+        reset_launch_counts()
+        got = mv(x, x_dtype)
+    assert launch_counts()["banded_matvec_padded"] == -(-m // 64)
+    if m <= 64:
+        assert seen.ops == ["empty.memory_format"], seen.ops
+    assert torch.equal(got, banded_matvec_padded_plain(band, n, bw, half, x,
+                                                       out_dtype=x_dtype))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+def test_banded_operator_bind_launches_once_per_matvec(cuda, x_dtype):
+    import scipy.sparse as sp
+
+    from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
+    from morfem_tpu_torch.ops.kernels import banded_matvec_padded_plain
+
+    rng = np.random.default_rng(3)
+    n, half = 700, 6
+    mats = [sp.diags([rng.normal(size=n - abs(d)) for d in range(-half,
+                                                                 half + 1)],
+                     offsets=range(-half, half + 1)).tocsr()
+            for _ in range(3)]
+    op = BandedAffineOperator(*mats, device=cuda)
+    c = torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64, device=cuda)
+    mv = op.bind(c)
+    band_p = torch.tensordot(c, op.bands_p.double(), dims=1).float()
+    for x in (_t(rng.standard_normal((n, 2)), cuda).to(x_dtype),
+              _t(rng.standard_normal(n), cuda).to(x_dtype)):
+        with _AtenOps() as seen:
+            reset_launch_counts()
+            y = mv(x)
+        assert launch_counts()["banded_matvec_padded"] == 1
+        assert not any(op.startswith(("_to_copy.", "copy_."))
+                       for op in seen.ops), seen.ops
+        x2 = x[:, None] if x.ndim == 1 else x
+        ref = banded_matvec_padded_plain(band_p, n, op.bw, half, x2,
+                                         out_dtype=x_dtype)
+        assert y.dtype == x_dtype and y.shape == x.shape
+        assert torch.equal(y, ref[:, 0] if x.ndim == 1 else ref)
 
 
 @pytest.mark.parametrize("n,half,m", [(1000, 6, 2), (777, 0, 1), (300, 47, 3)])

@@ -204,14 +204,33 @@ def test_mm_words_rejects_bad_shapes():
         mm_words(c.double(), torch.zeros((1, 128, 128)).double())
 
 
+# the source as the panel LU passes it: a contiguous block, a trailing
+# sub-block view, and a view whose rows start off a 16-byte boundary
+_GATHER_VIEWS = {
+    "contiguous": (slice(None), slice(8, None), slice(4, 132)),
+    "panel-LU view": (slice(None), slice(8, None), slice(128, 256)),
+    "column offset 1": (slice(None), slice(8, None), slice(1, 129)),
+}
+
+
+@pytest.mark.parametrize("view", list(_GATHER_VIEWS))
+@pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
 @pytest.mark.parametrize("p", [128, 256])
-def test_gather_rows_matches_pallas(p):
+def test_gather_rows_matches_pallas(p, idx_dtype, view):
+    # the port takes the indices in the caller's type (int32 as the panel
+    # factor gives them, or int64) and a strided source; the reference is
+    # given int32 and a contiguous copy
     rng = np.random.default_rng(p)
     g, n, w = 2, 256, 128
-    src = rng.standard_normal((g, n, w)).astype(np.float32)
+    big = rng.standard_normal((g, n + 8, 260)).astype(np.float32)
+    src = torch.from_numpy(big)[_GATHER_VIEWS[view]]
+    if view == "contiguous":
+        src = src.contiguous()
+    assert src.shape == (g, n, w)
     idx = np.stack([rng.permutation(n)[:p] for _ in range(g)]).astype(np.int32)
-    ref = np.asarray(jax_gather_rows(src, idx, interpret=True))
-    got = gather_rows(torch.from_numpy(src), torch.from_numpy(idx)).numpy()
+    ref = np.asarray(jax_gather_rows(src.contiguous().numpy(), idx,
+                                     interpret=True))
+    got = gather_rows(src, torch.from_numpy(idx.astype(idx_dtype))).numpy()
     np.testing.assert_array_equal(got, ref)  # a gather is exact
 
 
@@ -225,12 +244,13 @@ def test_gather_rows_matches_pallas(p):
         ((1, 256, 128), (1, 128), torch.float64),  # f32 only
     ],
 )
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
 def test_gather_rows_rejects_what_the_reference_rejects(shape, idx_shape,
-                                                        dtype):
+                                                        dtype, idx_dtype):
     src = torch.zeros(shape, dtype=dtype)
     idx = torch.zeros(idx_shape, dtype=torch.int32)
     with pytest.raises(ValueError):
-        gather_rows(src, idx)
+        gather_rows(src, idx.to(idx_dtype))
     with pytest.raises(ValueError):
         jax_gather_rows(src.numpy(), idx.numpy(), interpret=True)
 
