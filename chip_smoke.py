@@ -35,7 +35,18 @@ Phases, each printing one progress line with its seconds and numbers:
                outside the band, against SciPy's spsolve at 3 points;
   8. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
                (K5) and on a block-sparse operator (K6) at N=34,225, checked
-               against scipy.sparse.linalg.spsolve at 3 points.
+               against scipy.sparse.linalg.spsolve at 3 points;
+  9. complex — (a) the waveguide with a lossy Γ·T slot through morfem()'s
+               native complex128 dense route, against the full-order
+               complex sweep at all points (no K1-K3 launch), then the
+               complex model's serving re-sweep on the 10,000-point grid
+               (batched LU, no K4 launch) beside K4's real one; (b) the
+               lossy N=34,225 pencil through the matrix-free route on the
+               interleaved 2N embedding, default sweep and K4's flag (no K4
+               launch: the embedded model is not swept), and (c) the same
+               physics as real operators with a complex t_a2, each against
+               complex spsolve at 3 points; (d) the BiCGStab greedy on the
+               embedding of a complex banded pencil (K5).
 
 Each path's kernels are counted from zero over that path's run alone and
 must have launched; the kernels phase (3) holds K4-K6 against their plain
@@ -43,8 +54,9 @@ versions too, at the shapes these paths give them: K4's warp variant at
 the build and serving grids and its block variant at K=84, bit for bit;
 K6 packed on the fly and through the Krylov operator's own packing; K3 at
 each of the panel LU's shapes and views (`k3_inputs`) with int32 and int64
-indices; K5 with float32 and float64 x, and through the operator's `bind`
-as the Krylov loop calls it. K3-K6 and their library calls are also timed on the device
+indices; K5 at the real and the embedded complex pencil's bands, with
+float32 and float64 x, and through the operator's `bind` as the Krylov
+loop calls it. K3-K6 and their library calls are also timed on the device
 alone (`device_ms`), beside the launch floor (one tiny PyTorch launch
 timed the same way), since their time per call is mostly the host's.
 
@@ -68,7 +80,8 @@ import warnings
 
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
-          "reduced_lu": 300, "matfree": 600, "general": 600, "krylov": 600}
+          "reduced_lu": 300, "matfree": 600, "general": 600, "krylov": 600,
+          "complex": 900}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -519,59 +532,88 @@ def _band_csr(band, half):
 
 
 def _kernels_k5(dev, gen, keep):
-    """K5 at the Krylov phase's shape: N=34,225, bw=13, M=2, with float32
-    x and with float64 x read in the kernel (bit for bit against the plain
-    version either way); then through `BandedAffineOperator.bind` on the
-    Krylov pencil with float64 x, as the BiCGSTAB loop calls it."""
+    """K5 at the Krylov phases' shapes: N=34,225, bw=13, M=2 (the real
+    pencil, the principal shape) and N=68,450, bw=23, M=2 (the interleaved
+    embedding of the complex phase's pencil), with float32 x and with
+    float64 x read in the kernel (bit for bit against the plain version
+    either way); then through `BandedAffineOperator.bind` on each Krylov
+    pencil with float64 x, as the BiCGSTAB loop calls it, beside CSR SpMM
+    with float64 values and x (the library's call for the same work)."""
     import torch
 
     from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
+    from morfem_tpu_torch.ops.complex_split import embed_sparse_interleaved
     from morfem_tpu_torch.ops.kernels import (
         banded_matvec_padded, banded_matvec_padded_plain,
     )
 
-    n, half, m = P_34K ** 2, 6, 2
-    bw = 2 * half + 1
-    band = torch.randn((n, bw), generator=gen, device=dev)
-    x = torch.randn((n, m), generator=gen, device=dev)
-    x64 = torch.randn((n, m), generator=gen, device=dev, dtype=torch.float64)
-    out_k = banded_matvec_padded(band, n, bw, half, x)
-    out_p = banded_matvec_padded_plain(band, n, bw, half, x)
-    err = float((out_k - out_p).abs().max())
-    check(torch.equal(out_k, out_p),
-          f"K5 differs from its plain version: {err}")
-    f64 = dict(out_dtype=torch.float64)
-    out_k64 = banded_matvec_padded(band, n, bw, half, x64, **f64)
-    check(out_k64.dtype == torch.float64 and torch.equal(
-        out_k64, banded_matvec_padded_plain(band, n, bw, half, x64, **f64)),
-        "K5 with float64 x differs from its plain version")
-    ms = cuda_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
-    dev_ms = device_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
-    plain_ms = cuda_ms(lambda: banded_matvec_padded_plain(band, n, bw, half,
-                                                          x))
-    csr = _band_csr(band, half)
-    lib_ms = cuda_ms(lambda: csr @ x, 50)
-    lib_dev_ms = device_ms(lambda: csr @ x, 50)
-    b_ms, b_by = bound(4 * (n * bw + 2 * n * m), 2 * n * bw * m)
-    # as the Krylov loop calls it: float64 x in, float64 y out
-    op = BandedAffineOperator(*krylov_pencil(n), device=dev)
-    mv = op.bind(torch.tensor([1.0, 0.0, 2.25], dtype=torch.float64,
-                              device=dev))
-    check(mv(x64).dtype == torch.float64, "bind's matvec is not float64")
-    bind_ms = cuda_ms(lambda: mv(x64), 50)
-    bind_dev_ms = device_ms(lambda: mv(x64), 50)
-    b64_ms, _ = bound(4 * n * bw + 8 * 2 * n * m, 2 * n * bw * m)
-    print(f"  K5 banded_matvec_padded N={n} bw={bw} M={m}: "
-          f"max_abs_err={err} (float64 x: bit for bit) kernel_ms={ms:.4f} "
-          f"(device {_fmt(dev_ms)}) plain_ms={plain_ms:.4f} "
-          f"library_ms={lib_ms:.4f} (CSR @ dense; device {_fmt(lib_dev_ms)}) "
-          f"bound_ms={b_ms:.5f} ({b_by}); through bind with float64 x: "
-          f"{bind_ms:.4f} per call (device {_fmt(bind_dev_ms)}, bound "
-          f"{b64_ms:.5f})", flush=True)
-    keep("banded_matvec_padded", True, max_abs_err=err, ms=ms,
-         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-         shape=[n, bw, m], device_ms=dev_ms, library_device_ms=lib_dev_ms,
-         bind_f64_ms=bind_ms, bind_f64_device_ms=bind_dev_ms)
+    def real_pencil(n):  # symmetrized, as the Krylov phase runs it
+        return krylov_pencil(n), True
+
+    def embedded_pencil(n):  # the embedding is not symmetric
+        mats, _ = complex_krylov_pencil(n // 2)
+        return [embed_sparse_interleaved(m) for m in mats], False
+
+    m = 2
+    for label, n, half, pencil, principal in (
+            ("real", P_34K ** 2, 6, real_pencil, True),
+            ("embedded", 2 * P_34K ** 2, 11, embedded_pencil, False)):
+        bw = 2 * half + 1
+        band = torch.randn((n, bw), generator=gen, device=dev)
+        x = torch.randn((n, m), generator=gen, device=dev)
+        x64 = torch.randn((n, m), generator=gen, device=dev,
+                          dtype=torch.float64)
+        out_k = banded_matvec_padded(band, n, bw, half, x)
+        out_p = banded_matvec_padded_plain(band, n, bw, half, x)
+        err = float((out_k - out_p).abs().max())
+        check(torch.equal(out_k, out_p),
+              f"K5 differs from its plain version at {label}: {err}")
+        f64 = dict(out_dtype=torch.float64)
+        out_k64 = banded_matvec_padded(band, n, bw, half, x64, **f64)
+        check(out_k64.dtype == torch.float64 and torch.equal(
+            out_k64, banded_matvec_padded_plain(band, n, bw, half, x64,
+                                                **f64)),
+            f"K5 with float64 x differs from its plain version at {label}")
+        ms = cuda_ms(lambda: banded_matvec_padded(band, n, bw, half, x), 50)
+        dev_ms = device_ms(lambda: banded_matvec_padded(band, n, bw, half,
+                                                        x), 50)
+        plain_ms = cuda_ms(lambda: banded_matvec_padded_plain(
+            band, n, bw, half, x))
+        csr = _band_csr(band, half)
+        lib_ms = cuda_ms(lambda: csr @ x, 50)
+        lib_dev_ms = device_ms(lambda: csr @ x, 50)
+        b_ms, b_by = bound(4 * (n * bw + 2 * n * m), 2 * n * bw * m)
+        # as the Krylov loop calls it: float64 x in, float64 y out
+        mats, symmetrize = pencil(n)
+        op = BandedAffineOperator(*mats, symmetrize=symmetrize, device=dev)
+        check((op.n, op.bw) == (n, bw),
+              f"K5 {label}: operator is N={op.n}, bw={op.bw}")
+        c = torch.tensor([1.0, 0.0, 2.25], dtype=torch.float64, device=dev)
+        mv = op.bind(c)
+        check(mv(x64).dtype == torch.float64, "bind's matvec is not float64")
+        bind_ms = cuda_ms(lambda: mv(x64), 50)
+        bind_dev_ms = device_ms(lambda: mv(x64), 50)
+        b64_ms, _ = bound(4 * n * bw + 8 * 2 * n * m, 2 * n * bw * m)
+        csr64 = _band_csr(torch.tensordot(c, op.bands_w, dims=1), op.half)
+        lib64_ms = cuda_ms(lambda: csr64 @ x64, 50)
+        lib64_dev_ms = device_ms(lambda: csr64 @ x64, 50)
+        print(f"  K5 banded_matvec_padded {label} N={n} bw={bw} M={m}: "
+              f"max_abs_err={err} (float64 x: bit for bit) kernel_ms="
+              f"{ms:.4f} (device {_fmt(dev_ms)}) plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (CSR @ dense; device "
+              f"{_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by}); through "
+              f"bind with float64 x: {bind_ms:.4f} per call (device "
+              f"{_fmt(bind_dev_ms)}, bound {b64_ms:.5f}; float64 CSR @ "
+              f"dense {lib64_ms:.4f}, device {_fmt(lib64_dev_ms)})",
+              flush=True)
+        keep("banded_matvec_padded", principal, max_abs_err=err, ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib_ms, shape=[n, bw, m], device_ms=dev_ms,
+             library_device_ms=lib_dev_ms, bind_f64_ms=bind_ms,
+             bind_f64_device_ms=bind_dev_ms,
+             bind_f64_library_ms=lib64_ms,
+             bind_f64_library_device_ms=lib64_dev_ms)
+        del band, x, x64, out_k, out_p, out_k64, csr, csr64, op, mv
 
 
 def _kernels_k6(dev, gen, keep):
@@ -768,7 +810,8 @@ def slice_phase(dev, n_expected=3411, points=100):
 
 def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
     """The waveguide through morfem() with the reduced LU sweep on K4, then
-    the serving re-sweep of the trimmed model on a dense grid."""
+    the serving re-sweep of the trimmed model on a dense grid. Returns K4's
+    launches and the re-sweep's seconds."""
     import torch
 
     from morfem_tpu_torch import MorfemConfig, PhaseTimer, morfem, sweep
@@ -823,7 +866,7 @@ def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
           f"rel_vs_batched_lu={rel:.3e} K4_launches={k4_serve}", flush=True)
     check(rel < 1e-9, f"10k re-sweep rel error {rel} >= 1e-9")
     check(k4_serve > 0, "K4 was not launched by the serving re-sweep")
-    return k4_build + k4_serve
+    return k4_build + k4_serve, t_serve
 
 
 def _waveguide_2d(p):
@@ -1062,6 +1105,273 @@ def krylov_phase(dev, points=100):
     return launches
 
 
+LOSS = 1 - 0.02j  # a dielectric fill with an FR-4-like loss tangent
+
+
+def complex_krylov_pencil(n, half=5, seed=7):
+    """The JAX package's complex-symmetric banded test pencil (absorbing
+    Helmholtz-like): a0 with complex diagonal and bands, a1 = 0,
+    a2 = −I, complex b [N, 2]; SciPy CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    diags = [(8.0 + rng.random(n)) + 1j * 0.4] + [
+        (-0.3 + 0.05j) * np.ones(n - d) for d in range(1, half + 1)]
+    a0 = sp.diags(diags, list(range(half + 1))).tocsr()
+    a0 = ((a0 + a0.T) * 0.5).tocsr()
+    b = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    return (a0, sp.csr_matrix((n, n)), (sp.eye(n) * -1.0).tocsr()), b
+
+
+def _spsolve_refs(mats, b, coeffs, grid, idx):
+    """{i: SciPy spsolve of (Σ c_p(t_i)·A_p)·x = c_b(t_i)·b} (complex
+    where the pencil is); coeffs are numpy callables."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    refs = {}
+    for i in idx:
+        t = float(grid[i])
+        a = sum(f(t) * m for f, m in zip(coeffs[:3], mats)).tocsc()
+        refs[i] = spla.spsolve(a, coeffs[3](t) * np.asarray(b))
+    return refs
+
+
+def _worst_vs(q, x, refs):
+    """Largest relative error of q·x[i] against refs[i]."""
+    import numpy as np
+
+    qh = q.cpu().numpy()
+    return max(float(np.linalg.norm(qh @ x[i].cpu().numpy() - r)
+                     / np.linalg.norm(r)) for i, r in refs.items())
+
+
+def complex_phase(dev, sys_, k4_serve_s, p=P_34K, points=100,
+                  krylov_n=P_34K ** 2, serve_points=10000):
+    """Complex systems: (a) the lossy waveguide through the native
+    complex128 dense route, against the full-order complex sweep (no panel
+    LU), then its serving re-sweep beside K4's real one (``k4_serve_s``,
+    the reduced_lu phase's); (b) the lossy 2-D pencil through the
+    matrix-free route on the interleaved embedding, default sweep and K4's
+    flag, against complex spsolve; (c) the same physics as real operators
+    with a complex t_a2 (the extra-addend path); (d) the Krylov greedy on
+    the embedding of a complex banded pencil (K5). Returns K5's
+    launches."""
+    import numpy as np
+    import torch
+
+    from morfem_tpu_torch import (
+        AffineSystem, MorfemConfig, PhaseTimer, morfem, solve_sweep, sweep,
+        sweep_complex_reduced,
+    )
+    from morfem_tpu_torch.mor.complex_model import finish_complex_model
+    from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree
+    from morfem_tpu_torch.mor.reduced import ReducedModel
+    from morfem_tpu_torch.ops.assembly import assemble_at
+    from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
+    from morfem_tpu_torch.ops.block_tridiag import (
+        banded_direct_solve, banded_via_rcm,
+    )
+    from morfem_tpu_torch.ops.complex_split import (
+        deinterleave, embed_rhs_interleaved, embed_sparse_interleaved,
+    )
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    # (a) the dense lossy waveguide, native complex128
+    a2c = sys_.a2 * LOSS
+    cfg = MorfemConfig(error_threshold=1e-10)
+    timer = PhaseTimer(device=dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, q, r0, r1, r2, b_r = morfem(sys_.domain, sys_.a0, sys_.a1, a2c,
+                                   sys_.b, t_b=sys_.t_b, config=cfg,
+                                   timer=timer, device=dev)
+    torch.cuda.synchronize()
+    t_mor = time.perf_counter() - t0
+    sys_c = AffineSystem.create(sys_.domain, sys_.a0, sys_.a1, a2c, sys_.b,
+                                t_b=sys_.t_b, device=dev)
+    t0 = time.perf_counter()
+    x_full = solve_sweep(sys_c, cfg)
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    counts = launch_counts()
+    check(x.is_complex() and bool(torch.isfinite(torch.view_as_real(x))
+                                  .all()), "complex dense: bad x")
+    rec = torch.einsum("nk,ikm->inm", q, x)
+    rel_pts = (torch.linalg.norm(rec - x_full, dim=(1, 2))
+               / torch.linalg.norm(x_full, dim=(1, 2)))
+    rel = float(rel_pts.max())
+    spots = []
+    for i in (0, sys_.num_points // 2, sys_.num_points - 1):
+        a, b = assemble_at(sys_c, sys_c.domain[i], symmetrize=cfg.symmetrize)
+        xr = torch.linalg.solve(a, b)
+        spots.append(float(torch.linalg.norm(x_full[i] - xr)
+                           / torch.linalg.norm(xr)))
+    panel = {k: counts[k] for k in ("panel_factor", "mm_words",
+                                    "gather_rows")}
+    print(f"  complex dense N={sys_.n} I={sys_.num_points}: Nr={q.shape[1]} "
+          f"mor_s={t_mor:.3f} full_s={t_full:.3f} "
+          + " ".join(f"{k}_s={v:.3f}" for k, v in timer.times.items())
+          + f" max_point_rel_err_vs_full={rel:.3e} full_vs_torch_solve(3 "
+          f"points)={max(spots):.3e} launches={json.dumps(counts)}",
+          flush=True)
+    check(rel < 1e-7, f"complex dense: rel error vs full {rel} >= 1e-7")
+    check(max(spots) < 1e-9, f"complex dense: full-order spot {spots}")
+    check(sum(panel.values()) == 0,
+          f"complex dense reached the real panel LU: {panel}")
+    del x_full, rec, sys_c, a2c
+
+    # the complex model's serving re-sweep: K4's flag takes the batched LU
+    # (K4 is real f32), and sweep_complex_reduced solves the same batch
+    rm = ReducedModel(domain=sys_.domain, q=q, r0=r0, r1=r1, r2=r2, b_r=b_r,
+                      ncols=q.shape[1], t_a0=sys_.t_a0, t_a1=sys_.t_a1,
+                      t_a2=sys_.t_a2, t_b=sys_.t_b)
+    ts = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                        device=dev)
+    k4_cfg = cfg.replace(sweep_method="lu", use_pallas_reduced_sweep=True)
+    fns = (sys_.t_a0, sys_.t_a1, sys_.t_a2, sys_.t_b)
+    serve = {}
+    for label, fn in (
+        ("sweep", lambda: sweep(rm, k4_cfg, ts)),
+        ("sweep_complex_reduced", lambda: sweep_complex_reduced(
+            r0, r1, r2, b_r, ts, *fns, device=dev)),
+    ):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        serve[label] = fn()
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        k4 = launch_counts()["gauss_jordan_sweep_solve"]
+        print(f"  complex dense serve I={serve_points} Nr={q.shape[1]} "
+              f"({label}): sweep_s={t_serve:.4f} K4_launches={k4} "
+              f"(K4's real re-sweep: {k4_serve_s:.4f} s, ratio "
+              f"{t_serve / k4_serve_s:.2f})", flush=True)
+        check(k4 == 0, f"K4 was handed a complex model ({label})")
+    rel = float(torch.linalg.norm(serve["sweep"]
+                                  - serve["sweep_complex_reduced"])
+                / torch.linalg.norm(serve["sweep_complex_reduced"]))
+    print(f"  complex dense serve: sweep vs sweep_complex_reduced rel "
+          f"{rel:.3e}", flush=True)
+    check(rel < 1e-9, f"complex re-sweeps disagree: {rel}")
+    del rm, serve, r0, r1, r2, b_r
+
+    # (b) and (c): the lossy 2-D pencil at N=p², matrix-free
+    c_sp, zero, gamma, wp = _waveguide_2d(p)
+    freq = np.linspace(3e9, 5e9, points)
+    idx = (0, points // 2, points - 1)
+    wave = (lambda t: 1.0, lambda t: t, lambda t: t * t, lambda t: t)
+    lossy = (c_sp, zero, (gamma * LOSS).tocsr())
+    cfg = MorfemConfig(error_threshold=1e-8, symmetrize=False)
+    recs, refs, t_ref = {}, None, 0.0
+    runs = (
+        ("complex_matfree", lossy, {}, cfg),
+        ("complex_matfree_k4_flag", lossy, {}, cfg.replace(
+            sweep_method="lu", use_pallas_reduced_sweep=True)),
+        ("complex_matfree_t_a2", (c_sp, zero, gamma),
+         dict(t_a2=lambda t: t ** 2 * LOSS), cfg),
+    )
+    for label, mats, fns, c in runs:
+        timer = PhaseTimer(device=dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        x, q, *_ = morfem(freq, *mats, wp, config=c, timer=timer,
+                          device=dev, **fns)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+        check(x.is_complex() and bool(torch.isfinite(torch.view_as_real(x))
+                                      .all()), f"{label}: bad x")
+        if refs is None:
+            t0 = time.perf_counter()
+            refs = _spsolve_refs(lossy, wp, wave, freq, idx)
+            t_ref = time.perf_counter() - t0
+        worst = _worst_vs(q, x, refs)
+        recs[label] = torch.einsum("nk,ikm->inm", q, x)
+        print(f"  {label} N={q.shape[0]} (embedded {2 * q.shape[0]}) "
+              f"I={points}: Nr={q.shape[1]} total_s={total:.3f} "
+              + " ".join(f"{k}_s={v:.3f}" for k, v in timer.times.items())
+              + f" rel_err_vs_spsolve(3 points)={worst:.3e} "
+              f"launches={json.dumps(counts)}", flush=True)
+        check(worst < 1e-7, f"{label}: rel error vs spsolve {worst}")
+        if c.use_pallas_reduced_sweep:
+            # the embedded real model is built and not swept (the
+            # reference sweeps it and discards the result)
+            k4 = counts["gauss_jordan_sweep_solve"]
+            print(f"  {label}: K4 launches {k4}", flush=True)
+            check(k4 == 0, f"{label}: the embedded model was swept on K4")
+    print(f"  complex_matfree spsolve oracle (3 points, host): "
+          f"{t_ref:.3f} s", flush=True)
+    ref_rec = recs["complex_matfree"]
+    agree = float((torch.linalg.norm(recs["complex_matfree_t_a2"] - ref_rec,
+                                     dim=(1, 2))
+                   / torch.linalg.norm(ref_rec, dim=(1, 2))).max())
+    print(f"  complex_matfree vs complex_matfree_t_a2: max point rel "
+          f"{agree:.3e}", flush=True)
+    check(agree < 1e-7, f"complex operators vs complex t_a2: {agree}")
+    del recs, ref_rec
+    # one snapshot solve on the embedded pencil, timed alone
+    emb = [embed_sparse_interleaved(m) for m in lossy]
+    t0 = time.perf_counter()
+    op, perm = banded_via_rcm(*emb, symmetrize=False, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    f = float(freq[points // 2])
+    be = torch.as_tensor(embed_rhs_interleaved(wp), device=dev)[perm]
+    cf = torch.tensor([1.0, f, f * f], dtype=torch.float64, device=dev)
+    banded_direct_solve(op, cf, f * be)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, relres, its = banded_direct_solve(op, cf, f * be)
+    torch.cuda.synchronize()
+    print(f"  complex_matfree embedded snapshot solve: RCM half-bandwidth "
+          f"{op.half} (N={op.n}), setup_s={t_setup:.3f} solve_s="
+          f"{time.perf_counter() - t0:.3f} refinement_iterations={its} "
+          f"relres={float(relres.max()):.3e}", flush=True)
+    del op, emb, be
+
+    # (d) the Krylov greedy on the embedding of a complex banded pencil
+    mats, b = complex_krylov_pencil(krylov_n)
+    domain = np.linspace(0.8, 2.0, points)
+    t0 = time.perf_counter()
+    emb = [embed_sparse_interleaved(m) for m in mats]
+    op = BandedAffineOperator(*emb, symmetrize=False, device=dev)
+    be = torch.as_tensor(embed_rhs_interleaved(b), device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    cfg = MorfemConfig(error_threshold=1e-9, symmetrize=False)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res, rm = greedy_basis_matfree(op, be, domain, config=cfg,
+                                   method="bicgstab")
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    counts = launch_counts()
+    t0 = time.perf_counter()
+    x, q, *_ = finish_complex_model(
+        deinterleave(rm.q), *mats, b, domain, lambda t: torch.ones_like(t),
+        lambda t: t, lambda t: t ** 2, lambda t: t)
+    torch.cuda.synchronize()
+    t_finish = time.perf_counter() - t0
+    worst = _worst_vs(q, x, _spsolve_refs(mats, b, wave, domain, idx))
+    print(f"  complex_krylov N={krylov_n} (embedded {op.n}, half-bandwidth "
+          f"{op.half}, bw {op.bw}) I={points}: setup_s={t_setup:.3f} "
+          f"greedy_s={t_greedy:.3f} finish_s={t_finish:.3f} "
+          f"Nr_embedded={rm.ncols} Nr={q.shape[1]} iterations="
+          f"{res.iterations} converged={res.converged} "
+          f"rel_err_vs_spsolve(3 points)={worst:.3e} "
+          f"launches={json.dumps(counts)}", flush=True)
+    check(res.converged and not res.failed_snapshot,
+          "complex_krylov: greedy did not converge")
+    check(worst < 1e-6, f"complex_krylov: rel error {worst} >= 1e-6")
+    check(counts["banded_matvec_padded"] > 0,
+          "banded_matvec_padded was not launched by the embedded Krylov "
+          "greedy")
+    return counts["banded_matvec_padded"]
+
+
 def main() -> int:
     import torch
 
@@ -1095,14 +1405,17 @@ def main() -> int:
     with phase("slice"):
         counts, sys_, gsm_full = slice_phase(dev)
     with phase("reduced_lu"):
-        k4 = reduced_lu_phase(dev, sys_, gsm_full)
+        k4, k4_serve_s = reduced_lu_phase(dev, sys_, gsm_full)
     with phase("matfree"):
         k4_matfree = matfree_phase(dev)
     with phase("general"):
         general_phase(dev)
     with phase("krylov"):
         counts.update(krylov_phase(dev))
+    with phase("complex"):
+        k5_complex = complex_phase(dev, sys_, k4_serve_s)
     counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree
+    counts["banded_matvec_padded"] += k5_complex
 
     kernels = []
     for kname in SOURCES:
@@ -1116,7 +1429,9 @@ def main() -> int:
             "shape": r["shape"],
             **{key: r[key] for key in ("variants",) if key in r},
             **{key: r[key] for key in ("device_ms", "library_device_ms",
-                                       "bind_f64_ms", "bind_f64_device_ms")
+                                       "bind_f64_ms", "bind_f64_device_ms",
+                                       "bind_f64_library_ms",
+                                       "bind_f64_library_device_ms")
                if key in r},
         })
     print(smi, flush=True)  # name and power limit, as nvidia-smi gives them

@@ -18,24 +18,80 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig  # noqa: E402
-from morfem_tpu_torch.mor.api import build_reduced_model, morfem  # noqa: E402
-from morfem_tpu_torch.mor.greedy import GreedyResult, greedy_basis  # noqa: E402
-from morfem_tpu_torch.mor.reduced import ReducedModel, project, sweep  # noqa: E402
-from morfem_tpu_torch.ops.solve import solve_sweep  # noqa: E402
 from morfem_tpu_torch.system import AffineSystem  # noqa: E402
+from morfem_tpu_torch.mor.api import build_reduced_model, morfem  # noqa: E402
+from morfem_tpu_torch.mor.reduced import ReducedModel, project, sweep  # noqa: E402
+from morfem_tpu_torch.mor.greedy import GreedyResult, greedy_basis  # noqa: E402
+from morfem_tpu_torch.mor.equally import equally_distributed_basis  # noqa: E402
+from morfem_tpu_torch.ops.block_tridiag import (  # noqa: E402
+    banded_direct_solve,
+    banded_via_rcm,
+    rcm_direct_solve,
+    shifted_gmres_solve,
+)
+from morfem_tpu_torch.mor.spectral import (  # noqa: E402
+    QuadraticSpectralModel,
+    SpectralModel,
+    prepare_spectral,
+    prepare_spectral_quadratic,
+    spectral_sweep,
+    spectral_sweep_quadratic,
+)
+from morfem_tpu_torch.mor.estimator import (  # noqa: E402
+    estimate_errors,
+    estimate_errors_direct,
+    estimator_blocks,
+    operator_images,
+)
+from morfem_tpu_torch.ops.solve import (  # noqa: E402
+    lu_solve_refined,
+    solve_batch,
+    solve_dense,
+    solve_point,
+    solve_sweep,
+)
+from morfem_tpu_torch.ops.complex_split import (  # noqa: E402
+    embed_affine_system,
+    solve_complex,
+    solve_complex_split,
+    split_solution,
+)
+from morfem_tpu_torch.mor.complex_model import sweep_complex_reduced  # noqa: E402
+from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree  # noqa: E402
 from morfem_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 __all__ = [
-    "DEFAULT_CONFIG",
     "MorfemConfig",
+    "DEFAULT_CONFIG",
     "AffineSystem",
     "ReducedModel",
-    "GreedyResult",
-    "PhaseTimer",
     "morfem",
     "build_reduced_model",
-    "greedy_basis",
     "project",
     "sweep",
+    "greedy_basis",
+    "GreedyResult",
+    "equally_distributed_basis",
+    "SpectralModel",
+    "QuadraticSpectralModel",
+    "banded_direct_solve",
+    "banded_via_rcm",
+    "rcm_direct_solve",
+    "shifted_gmres_solve",
+    "prepare_spectral",
+    "prepare_spectral_quadratic",
+    "spectral_sweep",
+    "spectral_sweep_quadratic",
+    "estimator_blocks",
+    "estimate_errors",
+    "estimate_errors_direct",
+    "operator_images",
+    "solve_point",
+    "solve_batch",
     "solve_sweep",
+    "solve_dense",
+    "lu_solve_refined",
+    "greedy_basis_matfree",
+    "sweep_complex_reduced",
+    "PhaseTimer",
 ]

@@ -1,4 +1,4 @@
-"""Public API: ``morfem()`` and the builder it wraps (dense real route).
+"""Public API: ``morfem()`` and `build_reduced_model`, which it wraps.
 
 Counterpart of `morfem_tpu/mor/api.py` with the same call contract
 
@@ -10,8 +10,13 @@ the same defaults (t_a0 = 1, t_a1 = t, t_a2 = t², t_b = t) and shapes
 (default ``"cuda"``). Real systems take the dense route, or, for
 SciPy-sparse operators with N > ``config.dense_cutoff``, the matrix-free
 route (`_morfem_matfree`: RCM-banded direct snapshot solves, or the
-general-sparsity route after a `BandwidthError`). Complex systems raise
-`NotImplementedError` naming the slice that ports them.
+general-sparsity route after a `BandwidthError`).
+
+Complex systems (complex operators or b, or a coefficient callable whose
+values have a nonzero imaginary part anywhere on the grid) take the same
+two routes: the dense pipeline runs natively in complex128, and the
+matrix-free one runs on the interleaved real 2N embedding
+(`_morfem_matfree_complex`) and returns the complex reduced model.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ from morfem_tpu_torch.mor.reduced import ReducedModel, project, sweep
 from morfem_tpu_torch.device import resolve_device
 from morfem_tpu_torch.system import (
     AffineSystem,
-    _coefficients,
     _default_t_a0,
     _default_t_a1,
     _default_t_a2,
@@ -120,35 +124,32 @@ def _run_sweep(rm: ReducedModel, config: MorfemConfig):
         return sweep(rm, config)
 
 
-def _reject_complex(a0, a1, a2, b) -> None:
-    import scipy.sparse as sp
-
-    for x in (a0, a1, a2, b):
-        data = x.data if sp.issparse(x) else x
-        if (data.is_complex() if isinstance(data, torch.Tensor)
-                else np.iscomplexobj(data)):
-            raise NotImplementedError(
-                "complex systems are ported in slice 3 of the PyTorch port"
-            )
-
-
-def _reject_complex_coefficients(domain, fns, t_b) -> None:
-    c, cb = _coefficients(fns, t_b, domain[:1])
-    if c.is_complex() or cb.is_complex():
-        raise NotImplementedError(
-            "complex coefficients are ported in slice 3 of the PyTorch port"
-        )
-
-
 def _morfem_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
                     timer, device):
-    """Matrix-free `morfem()` for large sparse systems (same contract).
+    """Matrix-free `morfem()` for large sparse systems (same contract):
+    `_build_matfree`, then the reduced sweep. The returned q is in the
+    CALLER's row order."""
+    rm, q = _build_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b,
+                           config, timer, device)
+    with timer.phase("reduced sweep"):
+        x = _run_sweep(rm, config)
+    return x, q, rm.r0, rm.r1, rm.r2, rm.b_r
+
+
+def _build_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
+                   timer, device, extra_terms=()):
+    """The matrix-free reduced model, trimmed, and its basis in the
+    CALLER's row order (the model's own q is in the operator's order).
 
     Operator selection as in the reference: RCM-reordered banded direct
     solves when the sparsity is band-recoverable (`banded_via_rcm`), else
     (`BandwidthError`) the exact operator with the truncated-band shifted
     preconditioner (`truncated_band_via_rcm` → `GeneralSparseOperator`).
-    The returned q is in the CALLER's row order.
+
+    ``extra_terms``: ((matrix, coefficient callable), …) operator addends
+    beyond the 3-term pencil; the complex-coefficient route passes the
+    embedded imaginary parts here, and they reach the reduced model as
+    ``r_extra``.
     """
     import scipy.sparse as sp
 
@@ -170,8 +171,9 @@ def _morfem_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
     b = torch.as_tensor(b.toarray() if sp.issparse(b) else b, device=dev)
     if b.ndim == 1:
         b = b[:, None]
+    t_extra = tuple(fn for _, fn in extra_terms)
     mats = [m if sp.issparse(m) else sp.csr_matrix(np.asarray(m))
-            for m in (a0, a1, a2)]
+            for m in (a0, a1, a2, *(m for m, _ in extra_terms))]
     with timer.phase("operator setup"):
         try:
             op, perm = banded_via_rcm(
@@ -192,28 +194,27 @@ def _morfem_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
         if config.use_equally_distributed:
             idx = seed_indices(int(domain.shape[0]), config)
             q_op = sparse_snapshot_basis(
-                mats, b_op, domain, idx, (t_a0, t_a1, t_a2, t_b),
+                mats, b_op, domain, idx, (t_a0, t_a1, t_a2, *t_extra, t_b),
                 config=config, op=op,
             )
             p = perm.cpu().numpy()
             pmats = [m.tocsr()[p][:, p] for m in mats]
-            (r0, r1, r2), b_r = sparse_project(pmats, b_op, q_op)
+            (r0, r1, r2, *r_extra), b_r = sparse_project(pmats, b_op, q_op)
             rm = ReducedModel(
                 domain=domain, q=q_op, r0=r0, r1=r1, r2=r2, b_r=b_r,
                 ncols=q_op.shape[1], t_a0=t_a0, t_a1=t_a1, t_a2=t_a2,
-                t_b=t_b,
+                t_b=t_b, r_extra=tuple(r_extra), t_extra=t_extra,
             )
         else:
             gres, rm = greedy_basis_matfree(
                 op, b_op, domain, t_a0, t_a1, t_a2, t_b, config=config,
+                t_extra=t_extra,
             )
             _warn_if_unconverged(gres)
     rm = rm.trim()
     q_out = torch.zeros_like(rm.q)
     q_out[perm] = rm.q
-    with timer.phase("reduced sweep"):
-        x = _run_sweep(rm, config)
-    return x, q_out, rm.r0, rm.r1, rm.r2, rm.b_r
+    return rm, q_out
 
 
 def morfem(
@@ -233,32 +234,131 @@ def morfem(
     """Solve the parametric problem via model order reduction.
 
     Solves (t_a0·a0 + t_a1·a1 + t_a2·a2)·x = t_b·b over the whole domain
-    by Galerkin projection onto a snapshot basis. Operators are real
-    arrays, tensors or SciPy sparse matrices: sparse ones with
+    by Galerkin projection onto a snapshot basis. Operators are arrays,
+    tensors or SciPy sparse matrices, real or complex: sparse ones with
     N > ``config.dense_cutoff`` stay matrix-free end to end, smaller
     ones are densified. Coefficient callables act elementwise on a tensor
-    of points. Returns (x, q, a0_r, a1_r, a2_r, b_r) as tensors on
-    `device`, padding trimmed; q is in the caller's row order.
+    of points and may return complex values. A complex system runs the
+    dense pipeline in complex128, or the matrix-free one on the
+    interleaved real embedding (``symmetrize=False`` required there).
+    Returns (x, q, a0_r, a1_r, a2_r, b_r) as tensors on `device`, padding
+    trimmed; q is in the caller's row order; for a complex system all six
+    are complex and ``einsum("nk,ikm->inm", q, x)`` gives the solutions.
     """
     import scipy.sparse as sp
 
-    _reject_complex(a0, a1, a2, b)
+    from morfem_tpu_torch.ops.complex_split import eval_coefficient_table
+
     timer = timer or PhaseTimer(disabled=True)
+    fns = (t_a0, t_a1, t_a2, t_b)
+    # one table per callable over the whole grid: the system is complex when
+    # an operator or b is, or when a coefficient's value has a nonzero
+    # imaginary part anywhere on the grid
+    grid = torch.as_tensor(domain).to(device=resolve_device(device),
+                                      dtype=torch.float64)
+    tables = [eval_coefficient_table(grid, fn) for fn in fns]
+    is_complex = any(_is_complex(x) for x in (a0, a1, a2, b)) or any(
+        t.is_complex() and bool((t.imag != 0).any()) for t in tables
+    )
+    if not is_complex:
+        fns = tuple(_real_valued(fn, t) for fn, t in zip(fns, tables))
     if (any(sp.issparse(x) for x in (a0, a1, a2))
             and a0.shape[0] > config.dense_cutoff):
-        _reject_complex_coefficients(torch.as_tensor(domain),
-                                     (t_a0, t_a1, t_a2), t_b)
-        return _morfem_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b,
-                               config, timer, device)
-    sys = AffineSystem.create(
-        domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, device=device
-    )
-    if sys.b.is_complex() or sys.coefficients(sys.domain[:1])[0].is_complex():
-        raise NotImplementedError(
-            "complex coefficients are ported in slice 3 of the PyTorch port"
-        )
+        if is_complex:
+            return _morfem_matfree_complex(domain, a0, a1, a2, b, tables,
+                                           fns, config, timer, device)
+        return _morfem_matfree(domain, a0, a1, a2, b, *fns, config, timer,
+                               device)
+    # a complex system is cast to complex128 once, in `AffineSystem.create`
+    sys = AffineSystem.create(domain, a0, a1, a2, b, *fns, device=device)
     rm, _ = build_reduced_model(sys, config, timer)
     rm = rm.trim()
     with timer.phase("reduced sweep"):
         x = _run_sweep(rm, config)
     return x, rm.q, rm.r0, rm.r1, rm.r2, rm.b_r
+
+
+def _is_complex(x) -> bool:
+    """Complex dtype of an array, tensor or SciPy sparse matrix (read from
+    the sparse matrix's data, never through ``np.asarray``)."""
+    import scipy.sparse as sp
+
+    if isinstance(x, torch.Tensor):
+        return x.is_complex()
+    return np.iscomplexobj(x.data if sp.issparse(x) else x)
+
+
+def _real_valued(fn, table):
+    """A callable whose complex-typed values are real on the grid, made to
+    return their real part, so that a real system stays real."""
+    if not table.is_complex():
+        return fn
+    return lambda t: fn(t).real
+
+
+def _morfem_matfree_complex(domain, a0, a1, a2, b, tables, fns, config,
+                            timer, device):
+    """Complex `morfem()` — complex operators and/or complex coefficient
+    callables — on the interleaved real 2N embedding, matrix-free.
+
+    As in the reference:
+
+    * complex operators embed as interleaved real 2×2 rotation blocks, so
+      band structure survives (`embed_sparse_interleaved`);
+    * a complex coefficient splits into two real terms,
+      E(c·A) = Re(c)·E(A) + Im(c)·E(i·A); the Im parts ride as extra
+      addends (``extra_terms`` → ``t_extra`` / ``r_extra``);
+    * a complex t_b folds in as |t_b| during the build: A·x = c·b ⇔
+      x = (c/|c|)·y with A·y = |c|·b, and the estimator's residual weight
+      |t_b| is unchanged, so the greedy picks the complex problem's
+      points.
+
+    The build evaluates exact grid-lookup callables made from ``tables``
+    (one evaluation of each callable over the grid). The returned model
+    is the complex one (`mor/complex_model.py::finish_complex_model`):
+    q [N, Nr] complex-orthonormal, r_i = qᵀ·a_i·q of the ORIGINAL
+    operators, b_r = qᵀ·b, and x solving (Σ t_ai·r_i)·x = t_b·b_r, so any
+    grid can be re-swept with the caller's callables
+    (`sweep_complex_reduced`).
+    """
+    import scipy.sparse as sp
+
+    from morfem_tpu_torch.mor.complex_model import finish_complex_model
+    from morfem_tpu_torch.ops.complex_split import (
+        _host_array,
+        deinterleave,
+        embed_rhs_interleaved,
+        embed_sparse_interleaved,
+        grid_lookup_coefficient,
+    )
+
+    if config.symmetrize:
+        raise ValueError(
+            "complex sparse systems: the real embedding is non-symmetric; "
+            "run with config.symmetrize=False (the (A+Aᵀ)/2 step would "
+            "change the problem)"
+        )
+    ops = [m if sp.issparse(m) else sp.csr_matrix(_host_array(m))
+           for m in (a0, a1, a2)]
+    ca, cb = tables[:3], tables[3]
+    mats = [embed_sparse_interleaved(m) for m in ops]
+    lookups = [grid_lookup_coefficient(domain, t.real) for t in ca]
+    extra = tuple(
+        (embed_sparse_interleaved(1j * m),
+         grid_lookup_coefficient(domain, t.imag))
+        for m, t in zip(ops, ca)
+        if t.is_complex() and bool((t.imag != 0).any())
+    )
+    # the build solves with |t_b| (see above); the returned x comes from
+    # the complex reduced model, so no phase is folded back here, and the
+    # embedded real model is not swept (the reference sweeps it and
+    # discards the result)
+    tb = cb.abs() if cb.is_complex() else cb
+    _, q_e = _build_matfree(
+        domain, *mats, embed_rhs_interleaved(b), *lookups,
+        grid_lookup_coefficient(domain, tb), config, timer, device,
+        extra_terms=extra,
+    )
+    with timer.phase("complex reduced model"):
+        return finish_complex_model(deinterleave(q_e), *ops, b, domain,
+                                    *fns)

@@ -183,8 +183,10 @@ class BandedAffineOperator:
             for m in mats
         ):
             raise ValueError(
-                "BandedAffineOperator stores real bands; complex systems "
-                "are ported in slice 3 of the PyTorch port"
+                "BandedAffineOperator stores real bands; lift complex "
+                "operators through the interleaved real embedding first "
+                "(ops/complex_split.embed_sparse_interleaved — morfem() "
+                "does this automatically)"
             )
         bands, halves = zip(*(to_banded(a, bandwidth=bandwidth)
                               for a in mats))

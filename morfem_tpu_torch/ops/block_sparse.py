@@ -96,8 +96,10 @@ class BlockSparseAffineOperator:
                 for m in operands]
         if any(np.iscomplexobj(m.data) for m in mats):
             raise ValueError(
-                "BlockSparseAffineOperator stores real blocks; complex "
-                "systems are ported in slice 3 of the PyTorch port"
+                "BlockSparseAffineOperator stores real blocks; lift "
+                "complex operators through the interleaved real embedding "
+                "first (ops/complex_split.embed_sparse_interleaved — "
+                "morfem() does this automatically)"
             )
         if symmetrize:
             mats = [(m + m.T) * 0.5 for m in mats]

@@ -32,6 +32,7 @@ import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.banded_matvec import combine_addends
+from morfem_tpu_torch.ops.complex_split import real_embedding
 
 
 def _round_up(x: int, m: int) -> int:
@@ -177,13 +178,6 @@ def banded_direct_solve(
         it += 1
     relres = torch.linalg.norm(r, dim=0) / torch.clamp(b_norm, min=1e-300)
     return x, relres, it
-
-
-def real_embedding(a_re: torch.Tensor, a_im: torch.Tensor) -> torch.Tensor:
-    """[[Ar, −Ai], [Ai, Ar]] — the real 2N×2N image of Ar + i·Ai (batched)."""
-    top = torch.cat([a_re, -a_im], dim=-1)
-    bot = torch.cat([a_im, a_re], dim=-1)
-    return torch.cat([top, bot], dim=-2)
 
 
 def shifted_block_precond(op, c: torch.Tensor, sigma: float = 1e-5,

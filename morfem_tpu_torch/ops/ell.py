@@ -94,8 +94,10 @@ class ELLAffineOperator:
                 for m in operands]
         if any(np.iscomplexobj(m.data) for m in mats):
             raise ValueError(
-                "ELLAffineOperator stores real slots; complex systems are "
-                "ported in slice 3 of the PyTorch port"
+                "ELLAffineOperator stores real slots; lift complex "
+                "operators through the interleaved real embedding first "
+                "(ops/complex_split.embed_sparse_interleaved — morfem() "
+                "does this automatically)"
             )
         if symmetrize:
             mats = [(m + m.T) * 0.5 for m in mats]

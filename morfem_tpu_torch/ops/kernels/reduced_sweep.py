@@ -144,7 +144,9 @@ def fused_reduced_sweep(rm, ts, config) -> torch.Tensor:
     refinement passes whose residuals use the f64 R's, symmetrized in f64.
     Reduced systems are benign (cond ≲ 1e6), so three passes reach
     working precision. Models with addends beyond the 3-term pencil
-    (``r_extra``) take the batched LU, as in the reference.
+    (``r_extra``) take the batched LU, as in the reference, and so do
+    complex models: the kernel's operands are real f32, and a complex
+    model handed to it would lose its imaginary parts.
     """
     from morfem_tpu_torch.mor.reduced import (
         assemble_reduced,
@@ -152,10 +154,10 @@ def fused_reduced_sweep(rm, ts, config) -> torch.Tensor:
     )
     from morfem_tpu_torch.ops.orthonormalize import column_mask
 
-    if rm.r_extra:
+    c, cb = rm.coefficients(ts)
+    if rm.r_extra or any(x.is_complex() for x in (rm.r0, c, cb)):
         a, rhs = assemble_reduced(rm, ts, config)
         return solve_reduced_batch(a, rhs, config)
-    c, cb = rm.coefficients(ts)
     mask = column_mask(rm.k, rm.ncols, rm.b_r.dtype, rm.b_r.device)
     rhs = cb[:, None, None] * (rm.b_r * mask[:, None])
     inactive = 1.0 - mask

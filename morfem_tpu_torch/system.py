@@ -12,6 +12,7 @@ domain at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -108,7 +109,9 @@ class AffineSystem:
 
         Same signature and defaults as `morfem_tpu.AffineSystem.create`
         (t_a0=1, t_a1=t, t_a2=t², t_b=t), plus the device. The symmetry
-        probe runs on the host inputs, before they are moved.
+        probe runs on the host inputs, before they are moved. A complex
+        system (complex operators or b, or coefficients returning complex
+        values) has all four in one complex dtype.
         """
         dev = resolve_device(device)
         symmetric = all(_host_symmetric(x) for x in (a0, a1, a2))
@@ -127,6 +130,14 @@ class AffineSystem:
             b = b[:, None]
         if b.shape[0] != n:
             raise ValueError(f"b must have {n} rows, got {tuple(b.shape)}")
+        # a system is complex when an operator, b or a coefficient's values
+        # are: then operators and b are cast to the promoted complex dtype
+        # here, once, and everything downstream reads their dtype
+        c, cb = _coefficients((t_a0, t_a1, t_a2), t_b, domain[:1])
+        dt = functools.reduce(
+            torch.promote_types, (x.dtype for x in (a0, a1, a2, b, c, cb)))
+        if dt.is_complex:
+            a0, a1, a2, b = (x.to(dt) for x in (a0, a1, a2, b))
         return AffineSystem(
             domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b,
             symmetric_ops=symmetric,

@@ -588,3 +588,121 @@ def test_word_split_kernel_is_as_accurate_as_an_fp32_product(cuda, with_t):
     err_f = (mm_words_plain(c, r, t, sign=sign).double() - exact).abs()
     assert float(err_k.mean()) <= float(err_f.mean())
     assert float(err_k.max()) <= 2.0 * float(err_f.max())
+
+
+def _complex_banded(n, half=5, seed=7):
+    """A complex-symmetric banded pencil (a0, 0, −I) and complex b."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    diags = [(8.0 + rng.random(n)) + 1j * 0.4] + [
+        (-0.3 + 0.05j) * np.ones(n - d) for d in range(1, half + 1)]
+    a0 = sp.diags(diags, list(range(half + 1))).tocsr()
+    a0 = ((a0 + a0.T) * 0.5).tocsr()
+    b = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    return (a0, sp.csr_matrix((n, n)), (sp.eye(n) * -1.0).tocsr()), b
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.float64])
+def test_banded_matvec_kernel_on_the_interleaved_embedding(cuda, x_dtype):
+    """K5 at the embedded band (half-bandwidth 5 → 11, bw 23), bare and
+    through the non-symmetric operator's `bind`: bit for bit."""
+    from morfem_tpu_torch.ops.banded_matvec import BandedAffineOperator
+    from morfem_tpu_torch.ops.complex_split import embed_sparse_interleaved
+    from morfem_tpu_torch.ops.kernels import (
+        banded_matvec_padded,
+        banded_matvec_padded_plain,
+    )
+
+    mats, _ = _complex_banded(1501)
+    op = BandedAffineOperator(*(embed_sparse_interleaved(m) for m in mats),
+                              symmetrize=False, device=cuda)
+    assert (op.n, op.half, op.bw) == (3002, 11, 23)
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((op.n, 2)), cuda).to(x_dtype)
+    band = _t(rng.standard_normal((op.n, 23)).astype(np.float32), cuda)
+    reset_launch_counts()
+    got = banded_matvec_padded(band, op.n, 23, 11, x, out_dtype=x_dtype)
+    assert launch_counts()["banded_matvec_padded"] == 1
+    assert torch.equal(got, banded_matvec_padded_plain(
+        band, op.n, 23, 11, x, out_dtype=x_dtype))
+    c = torch.tensor([1.0, 0.0, 1.7], dtype=torch.float64, device=cuda)
+    band_p = torch.tensordot(c, op.bands_p.double(), dims=1).float()
+    reset_launch_counts()
+    y = op.bind(c)(x)
+    assert launch_counts()["banded_matvec_padded"] == 1
+    assert torch.equal(y, banded_matvec_padded_plain(
+        band_p, op.n, op.bw, op.half, x, out_dtype=x_dtype))
+
+
+def test_complex_dense_morfem_skips_the_real_kernels(cuda):
+    """The dense complex route on the card: complex128 throughout, no
+    panel LU (K1–K3), and a complex model under the K4 sweep takes the
+    batched LU (no K4 launch), equal to the CPU run."""
+    from morfem_tpu_torch import MorfemConfig, morfem
+
+    rng = np.random.default_rng(9)
+    n = 200
+    g = rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))
+    a0 = (g + g.T) * 0.5 + (6.0 + 1.5j) * np.eye(n)
+    a1, a2 = np.zeros((n, n)), -np.eye(n)
+    b = rng.standard_normal((n, 2)) + 1j * rng.standard_normal((n, 2))
+    domain = np.linspace(0.8, 1.6, 16)
+    cfg = MorfemConfig(symmetrize=False, error_threshold=1e-14,
+                       sweep_method="lu", use_pallas_reduced_sweep=True)
+    reset_launch_counts()
+    x, q, *_ = morfem(domain, a0, a1, a2, b, config=cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in launch_counts().values()), launch_counts()
+    assert x.is_complex() and x.device.type == "cuda"
+    rec = torch.einsum("nk,ikm->inm", q, x).cpu().numpy()
+    for i in (0, 8, 15):
+        t = domain[i]
+        ref = np.linalg.solve(a0 - t * t * np.eye(n), t * b)
+        assert np.linalg.norm(rec[i] - ref) < 1e-9 * np.linalg.norm(ref)
+
+
+def test_complex_matfree_morfem_on_the_card(cuda):
+    """The matrix-free complex route on the card: the embedded real P=3
+    model is built and not swept, so K4's flag launches no K4, and the
+    complex model matches spsolve."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg  # noqa: F401
+
+    from morfem_tpu_torch import MorfemConfig, morfem
+
+    mats, b = _complex_banded(400)
+    domain = np.linspace(0.8, 2.0, 16)
+    cfg = MorfemConfig(symmetrize=False, dense_cutoff=128,
+                       error_threshold=1e-11, sweep_method="lu",
+                       use_pallas_reduced_sweep=True)
+    reset_launch_counts()
+    x, q, *_ = morfem(domain, *mats, b, config=cfg, device=cuda)
+    torch.cuda.synchronize()
+    assert launch_counts()["gauss_jordan_sweep_solve"] == 0
+    qh, xh = q.cpu().numpy(), x.cpu().numpy()
+    for i in (0, 8, 15):
+        t = domain[i]
+        ref = sp.linalg.spsolve((mats[0] - t * t * sp.eye(400)).tocsc(),
+                                t * b)
+        assert np.linalg.norm(qh @ xh[i] - ref) < 1e-8 * np.linalg.norm(ref)
+
+
+def test_sweep_complex_reduced_defaults_to_the_card(cuda):
+    """NumPy inputs are moved to the card by default; the sweep agrees
+    with the CPU's."""
+    from morfem_tpu_torch import sweep_complex_reduced
+
+    rng = np.random.default_rng(4)
+    k = 12
+    r0, r1, r2 = (rng.standard_normal((k, k)) + 1j * rng.standard_normal(
+        (k, k)) + 8 * np.eye(k) * (p == 0) for p in range(3))
+    b_r = rng.standard_normal((k, 2)) + 1j * rng.standard_normal((k, 2))
+    grid = np.linspace(0.5, 1.5, 64)
+    fns = (lambda t: torch.ones_like(t), lambda t: t, lambda t: t ** 2,
+           lambda t: t * torch.exp(1j * t))
+    x = sweep_complex_reduced(r0, r1, r2, b_r, grid, *fns)
+    assert x.device.type == "cuda" and x.dtype == torch.complex128
+    x_cpu = sweep_complex_reduced(r0, r1, r2, b_r, grid, *fns, device="cpu")
+    assert torch.linalg.norm(x.cpu() - x_cpu) < 1e-12 * torch.linalg.norm(
+        x_cpu)

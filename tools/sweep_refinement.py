@@ -1,18 +1,23 @@
-"""Refinement iterations and escalations of the port's full-order sweep.
+"""Full-order sweep and MOR times of the port on the dense waveguide.
 
-    python3 tools/sweep_refinement.py [PACKAGE_ROOT] [--cache DIR]
+    python3 tools/sweep_refinement.py [PACKAGE_ROOT] [--cache DIR] [--reps N]
 
 Runs `morfem_tpu_torch.ops.panel_lu.solve_sweep_panel` on the bundled
-N=3411 waveguide (M=2, I=100 over 3-5 GHz, the slice phase of
-chip_smoke.py) on the card, twice (the first run pays warm-up), and prints
-one JSON line per run: the sweep's seconds, the number of full-pivot
-factors (block-pivot escalations), the refinement iterations of every
-refinement loop in order (one per chunk, two for an escalated chunk), and
-the relative error against `torch.linalg.solve` (f64) at three points.
+N=3411 waveguide (M=2, I=100 over 3-5 GHz, error_threshold=1e-10: the
+slice phase of chip_smoke.py) on the card N times (default 2; the first
+run pays warm-up), each followed by `apps.waveguide.mor_gsm` (greedy
+basis, projection, spectral sweep, GSM), and prints one JSON line per run:
+the sweep's seconds, the number of full-pivot factors (block-pivot
+escalations), the refinement iterations of every refinement loop in order
+(one per chunk, two for an escalated chunk), the relative error against
+`torch.linalg.solve` (f64) at three points, and mor_gsm's seconds and Nr.
+Times are host clock around work that ends in a synchronise. The last line
+is the card's name and power limit from nvidia-smi.
 
 PACKAGE_ROOT (default: this checkout) is put first on the import path, so
 the same script measures an older tree of the port, e.g. one unpacked with
-`git archive <commit> morfem_tpu_torch`; it counts through wrappers around
+`git archive <commit> morfem_tpu_torch` (run parent, change, change,
+parent in one call to compare two trees on one card); it counts through wrappers around
 module functions and needs no counters in the tree it measures. --cache
 names the directory of `synthetic_wg_3411.npz` (default: the bundled
 cache of the tree measured).
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -32,6 +38,7 @@ def main() -> int:
     ap.add_argument("root", nargs="?",
                     default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--cache", default=None)
+    ap.add_argument("--reps", type=int, default=2)
     args = ap.parse_args()
     sys.path.insert(0, args.root)
 
@@ -41,7 +48,7 @@ def main() -> int:
     import morfem_tpu_torch
     from morfem_tpu_torch import MorfemConfig
     from morfem_tpu_torch.apps.waveguide import (
-        load_waveguide_data, waveguide_system,
+        load_waveguide_data, mor_gsm, waveguide_system,
     )
     from morfem_tpu_torch.ops import panel_lu
     from morfem_tpu_torch.ops.assembly import assemble_at
@@ -76,7 +83,7 @@ def main() -> int:
     counting_refine.iterations = 0
     panel_lu._refine = counting_refine
     panel_lu.panel_lu_factor = counting_factor
-    for rep in range(2):
+    for rep in range(args.reps):
         loops.clear()
         full[0] = 0
         torch.cuda.synchronize()
@@ -90,6 +97,11 @@ def main() -> int:
             xr = torch.linalg.solve(a, b)
             errs.append(float(torch.linalg.norm(x[i] - xr)
                               / torch.linalg.norm(xr)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, rm, _ = mor_gsm(sys_, cfg)
+        torch.cuda.synchronize()
+        mor_seconds = time.perf_counter() - t0
         print(json.dumps({
             "package": str(Path(morfem_tpu_torch.__file__).parent),
             "device": torch.cuda.get_device_name(0), "run": rep,
@@ -97,7 +109,13 @@ def main() -> int:
             "refinement_iterations": loops,
             "total_iterations": sum(loops),
             "spot_rel_err_vs_solve": errs,
+            "mor_s": mor_seconds, "nr": int(rm.ncols),
         }), flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    print(smi.stdout.strip(), flush=True)
     return 0
 
 
