@@ -25,18 +25,30 @@ Phases, each printing one progress line with its seconds and numbers:
                its GSM against the full-order GSM, then the serving re-sweep
                of the trimmed model on a 10,000-point grid against the
                batched library LU, with points/s;
-  6. matfree — the 2-D waveguide pencil at N=34,225 (SciPy sparse, RCM-banded
+  6. serve   — the rest of the single-GPU surface on the same waveguide:
+               the trimmed MOR model saved and loaded (the default t_b must
+               warn) and re-swept on 10,000 points through K4, bit for bit
+               as the in-memory model; the full-order spectral oracle
+               (prepare in f64 on the card) against the slice phase's
+               panel-LU sweep, f64 solves and the full-order GSM, then a
+               10,000-point full-order sweep; the Gauss-Jordan inverse and
+               morfem(factorization="gj") against the full-order GSM; cyclic
+               reduction against block Thomas on the N=34,225 pencil at 3
+               points; the basis-size study (3..29 seeds) on the slice
+               phase's full-order sweep against an independent recompute
+               at two sizes;
+  7. matfree — the 2-D waveguide pencil at N=34,225 (SciPy sparse, RCM-banded
                matrix-free route) through morfem(), default sweep and then the
                K4 LU sweep, against banded direct oracle solves at 7 points;
-  7. general — the same pencil at N=9,409 forced onto the general-sparsity
+  8. general — the same pencil at N=9,409 forced onto the general-sparsity
                route (band_max_half=128: truncated band + exact-operator
                GMRES), same oracle check; then the same pencil plus weak
                scattered couplings, so that the preconditioner drops mass
                outside the band, against SciPy's spsolve at 3 points;
-  8. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
+  9. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
                (K5) and on a block-sparse operator (K6) at N=34,225, checked
                against scipy.sparse.linalg.spsolve at 3 points;
-  9. complex — (a) the waveguide with a lossy Γ·T slot through morfem()'s
+ 10. complex — (a) the waveguide with a lossy Γ·T slot through morfem()'s
                native complex128 dense route, against the full-order
                complex sweep at all points (no K1-K3 launch), then the
                complex model's serving re-sweep on the 10,000-point grid
@@ -80,8 +92,8 @@ import warnings
 
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
-          "reduced_lu": 300, "matfree": 600, "general": 600, "krylov": 600,
-          "complex": 900}
+          "reduced_lu": 300, "serve": 900, "matfree": 600, "general": 600,
+          "krylov": 600, "complex": 900}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -740,7 +752,8 @@ def slice_phase(dev, n_expected=3411, points=100):
 
     from morfem_tpu_torch import MorfemConfig, PhaseTimer
     from morfem_tpu_torch.apps.waveguide import (
-        full_order_gsm, load_waveguide_data, mor_gsm, waveguide_system,
+        generalized_scattering_matrix, load_waveguide_data, mor_gsm,
+        waveguide_system,
     )
     from morfem_tpu_torch.ops.assembly import assemble_at
     from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
@@ -763,9 +776,13 @@ def slice_phase(dev, n_expected=3411, points=100):
     torch.cuda.synchronize()
     reset_sweep_counters()
     t0 = time.perf_counter()
-    gsm_full = full_order_gsm(sys_, cfg, timer)
+    with timer.phase("full-order sweep"):
+        x_full = solve_sweep(sys_, cfg)
     torch.cuda.synchronize()
     t_full = time.perf_counter() - t0
+    _, cb = sys_.coefficients(sys_.domain)
+    gsm_full = generalized_scattering_matrix(sys_.domain, x_full,
+                                             cb[:, None, None] * sys_.b)
     counts = launch_counts()
     escalations = solve_sweep_panel.escalations
     chunk_its = list(solve_sweep_panel.chunk_iterations)
@@ -805,7 +822,7 @@ def slice_phase(dev, n_expected=3411, points=100):
     for name in ("panel_factor", "mm_words", "gather_rows"):
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
-    return counts, sys_, gsm_full
+    return counts, sys_, rm, gsm_full, x_full, t_full
 
 
 def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
@@ -867,6 +884,252 @@ def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
     check(rel < 1e-9, f"10k re-sweep rel error {rel} >= 1e-9")
     check(k4_serve > 0, "K4 was not launched by the serving re-sweep")
     return k4_build + k4_serve, t_serve
+
+
+def serve_phase(dev, sys_, rm, gsm_full, x_full, t_full, serve_points=10000,
+                cr_p=P_34K, study_sizes=range(3, 30), recheck=(6, 12)):
+    """The rest of the single-GPU surface on the slice's waveguide:
+    (1) checkpointed serving — the trimmed model saved, loaded with the
+    port coefficient (and with the default t_b, which must warn), and
+    re-swept through K4 on 10,000 points, bit for bit as the in-memory
+    model; (2) the full-order spectral oracle (prepare on the card in f64,
+    the 100-point sweep against the slice phase's panel-LU sweep `x_full`
+    (`t_full` seconds) and f64 solves, its GSM against the full-order GSM,
+    then a 10,000-point sweep); (3) the Gauss–Jordan inverse, solve and
+    morfem(factorization="gj"); (4) cyclic reduction against block Thomas
+    on the N=cr_p² pencil at 3 points; (5) the basis-size study on
+    `x_full` against an independent recompute. Returns K4's launches in
+    part 1."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from morfem_tpu_torch import (
+        MorfemConfig, PhaseTimer, equally_distributed_basis, gj_inverse_f32,
+        gj_solve_refined, load_reduced_model, morfem, prepare_spectral,
+        prepare_spectral_full, project, save_reduced_model,
+        spectral_full_sweep, spectral_sweep, sweep,
+    )
+    from morfem_tpu_torch.apps.studies import basis_size_study
+    from morfem_tpu_torch.apps.waveguide import (
+        b_coefficient, generalized_scattering_matrix,
+    )
+    from morfem_tpu_torch.mor.reduced import assemble_reduced
+    from morfem_tpu_torch.ops.assembly import assemble_at
+    from morfem_tpu_torch.ops.block_tridiag import (
+        banded_direct_solve, banded_via_rcm,
+    )
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = MorfemConfig(error_threshold=1e-10)
+    cfg_k4 = cfg.replace(sweep_method="lu", use_pallas_reduced_sweep=True)
+    points = sys_.num_points
+    _, cb = sys_.coefficients(sys_.domain)
+    b_full = cb[:, None, None] * sys_.b
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (1) checkpointed serving through K4
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "waveguide_model")
+        save_reduced_model(path, rm, metadata={"n_dof": sys_.n})
+        size = os.path.getsize(path + ".npz")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            load_reduced_model(path, device=dev)
+        warned = any("t_b" in str(w.message) for w in caught)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            loaded = load_reduced_model(path, t_b=b_coefficient, device=dev)
+    check(warned, "load with the default t_b did not warn")
+    check(loaded.q.device.type == "cuda" and loaded.ncols == rm.ncols,
+          "the loaded model is not on the card")
+    ts = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                        device=dev)
+    x_mem = sweep(rm, cfg_k4, ts)
+    x_loaded, t_k4 = timed(lambda: sweep(loaded, cfg_k4, ts))
+    same = bool(torch.equal(x_loaded, x_mem))
+    sm = prepare_spectral(loaded, cfg)
+    spectral_sweep(sm, ts)  # warm-up
+    _, t_spec = timed(lambda: spectral_sweep(sm, ts))
+    counts = launch_counts()
+    print(f"  serve checkpoint: {size} bytes, Nr={loaded.ncols}, default "
+          f"t_b warned={warned}; K4 re-sweep of the loaded model I="
+          f"{serve_points}: sweep_s={t_k4:.4f} points_per_s="
+          f"{serve_points / t_k4:.1f} equal_to_in_memory={same}; "
+          f"spectral_sweep_s={t_spec:.4f} points_per_s="
+          f"{serve_points / t_spec:.1f} K4_launches="
+          f"{counts['gauss_jordan_sweep_solve']}", flush=True)
+    check(same, "K4 on the loaded model differs from the in-memory model")
+    k4_launches = counts["gauss_jordan_sweep_solve"]
+    check(k4_launches > 0, "K4 was not launched by the checkpointed re-sweep")
+    del x_mem, x_loaded
+
+    # (2) the full-order spectral oracle beside the panel-LU sweep
+    fs, t_prep = timed(lambda: prepare_spectral_full(sys_, cfg))
+    print(f"  serve spectral_full prepare (f64 on the card): "
+          f"prepare_s={t_prep:.3f} sigma={fs.sigma:.6e} "
+          f"swapped={fs.swapped}", flush=True)
+    x_spec, t_spec100 = timed(lambda: spectral_full_sweep(fs))
+    worst = float((torch.linalg.norm(x_spec - x_full, dim=(1, 2))
+                   / torch.linalg.norm(x_full, dim=(1, 2))).max())
+    spot = 0.0
+    for i in (0, points // 2, points - 1):
+        a, b = assemble_at(sys_, sys_.domain[i], symmetrize=cfg.symmetrize)
+        xr = torch.linalg.solve(a, b)
+        spot = max(spot, float(torch.linalg.norm(x_spec[i] - xr)
+                               / torch.linalg.norm(xr)))
+    gsm_spec = generalized_scattering_matrix(sys_.domain, x_spec, b_full)
+    gsm_err = float((gsm_spec - gsm_full).abs().max())
+    ts_big = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                            device=dev)
+    spectral_full_sweep(fs, ts_big)  # warm-up
+    x_big, t_big = timed(lambda: spectral_full_sweep(fs, ts_big))
+    out_gb = x_big.numel() * x_big.element_size() / 1e9
+    big_ms = cuda_ms(lambda: spectral_full_sweep(fs, ts_big), reps=3)
+    big_flop = 2.0 * sys_.n * sys_.n * serve_points * sys_.m  # back @ p2
+    print(f"  serve spectral_full I={points}: sweep_s={t_spec100:.4f} "
+          f"(the slice phase's panel-LU sweep_s={t_full:.3f}) "
+          f"max_point_rel_vs_panel_lu={worst:.3e} "
+          f"rel_vs_torch_solve(3 points)={spot:.3e} "
+          f"max|S_spectral-S_full|={gsm_err:.3e}; I={serve_points}: "
+          f"sweep_s={t_big:.4f} device_ms={big_ms:.3f} output_GB="
+          f"{out_gb:.3f} points_per_s={serve_points / t_big:.1f} "
+          f"f64_product_GFLOP={big_flop / 1e9:.1f} achieved_TFLOP_s="
+          f"{big_flop / big_ms / 1e9:.1f}", flush=True)
+    check(worst < 1e-9, f"spectral_full vs panel LU: {worst} >= 1e-9")
+    check(spot < 1e-9, f"spectral_full vs torch.linalg.solve: {spot}")
+    check(gsm_err < 1e-8, f"spectral_full GSM error {gsm_err} >= 1e-8")
+    del x_big, x_spec, fs
+
+    # (3) the Gauss-Jordan factorization
+    a, _ = assemble_at(sys_, sys_.domain[points // 2],
+                       symmetrize=cfg.symmetrize)
+    gj_inverse_f32(a[:256, :256])  # warm-up
+    ainv, t_inv = timed(lambda: gj_inverse_f32(a))
+    eye = torch.eye(sys_.n, dtype=torch.float64, device=dev)
+    inv_res = float(torch.linalg.norm(a @ ainv.double() - eye)
+                    / torch.linalg.norm(eye))
+    del ainv
+    gj_worst = 0.0
+    for i in (0, points // 2, points - 1):
+        a, b = assemble_at(sys_, sys_.domain[i], symmetrize=cfg.symmetrize)
+        x = gj_solve_refined(a, b, refine_iterations=cfg.refine_iterations)
+        xr = torch.linalg.solve(a, b)
+        gj_worst = max(gj_worst, float(torch.linalg.norm(x - xr)
+                                       / torch.linalg.norm(xr)))
+    cfg_gj = MorfemConfig(factorization="gj", error_threshold=1e-10)
+    timer = PhaseTimer(device=dev)
+    (x, q, *_, b_r), t_gj = timed(lambda: morfem(
+        sys_.domain, sys_.a0, sys_.a1, sys_.a2, sys_.b, t_b=sys_.t_b,
+        config=cfg_gj, timer=timer, device=dev))
+    gsm_gj = generalized_scattering_matrix(sys_.domain, x,
+                                           cb[:, None, None] * b_r)
+    gj_gsm_err = float((gsm_gj - gsm_full).abs().max())
+    print(f"  serve gj N={sys_.n}: gj_inverse_f32_s={t_inv:.3f} "
+          f"rel_residual={inv_res:.3e}; gj_solve_refined "
+          f"rel_vs_torch_solve(3 points)={gj_worst:.3e}; "
+          f"morfem(factorization='gj') Nr={q.shape[1]} total_s={t_gj:.3f} "
+          f"greedy_s={timer.times['projection base']:.3f} "
+          f"max|S_gj-S_full|={gj_gsm_err:.3e}", flush=True)
+    check(gj_worst < 1e-9, f"gj_solve_refined vs torch solve: {gj_worst}")
+    check(gj_gsm_err < 1e-8, f"gj route GSM error {gj_gsm_err} >= 1e-8")
+
+    # (4) cyclic reduction against block Thomas on the matrix-free pencil
+    c_sp, zero, gamma, wp = _waveguide_2d(cr_p)
+    op, perm = banded_via_rcm(c_sp, zero, gamma, symmetrize=cfg.symmetrize,
+                              device=dev)
+    rhs = torch.as_tensor(wp, device=dev)[perm]
+    freq = np.linspace(3e9, 5e9, points)
+    idx = (0, points // 2, points - 1)
+    for i in idx[:1]:  # warm-up of both
+        f = float(freq[i])
+        cf = torch.tensor([1.0, f, f * f], dtype=torch.float64, device=dev)
+        for fac in ("scan", "cr"):
+            banded_direct_solve(op, cf, f * rhs, cfg, factorization=fac)
+    cr_worst = 0.0
+    for i in idx:
+        f = float(freq[i])
+        cf = torch.tensor([1.0, f, f * f], dtype=torch.float64, device=dev)
+        res = {}
+        for fac in ("scan", "cr"):
+            res[fac], t = timed(lambda: banded_direct_solve(
+                op, cf, f * rhs, cfg, factorization=fac))
+            res[fac] = res[fac] + (t,)
+        (xs, rs, its, ts_), (xc, rc, itc, tc) = res["scan"], res["cr"]
+        rel = float(torch.linalg.norm(xc - xs) / torch.linalg.norm(xs))
+        cr_worst = max(cr_worst, rel)
+        print(f"  serve cr N={op.n} (half-bandwidth {op.half}) "
+              f"f={f:.6e}: scan solve_s={ts_:.4f} iterations={its} "
+              f"relres={float(rs.max()):.3e}; cr solve_s={tc:.4f} "
+              f"iterations={itc} relres={float(rc.max()):.3e}; "
+              f"rel_cr_vs_scan={rel:.3e}", flush=True)
+    check(cr_worst < 1e-10, f"cr vs scan: {cr_worst} >= 1e-10")
+    del op, rhs
+
+    # (5) the basis-size study against an independent recompute. Both
+    # sides project with `project` and solve by the batched LU (`sweep`
+    # without K4's flag); only their bases differ: the study orthonormalizes
+    # each size's columns of the padded snapshot bank (masked SVD), the
+    # recompute its own snapshots (SVD). The spans agree to roundoff (the
+    # subspace gap); the reduced systems' condition number carries that
+    # into the reconstructions, and exact f64 reduced solves on both bases
+    # show that the LU adds nothing to it.
+    study, t_study = timed(lambda: basis_size_study(
+        sys_, study_sizes, cfg, x_full=x_full))
+    denom = torch.linalg.norm(x_full)
+
+    def frac(y, z):  # |y - z| in units of |x_full|
+        return float(torch.linalg.norm(y - z) / denom)
+
+    def exact_reconstruction(q):  # and the reduced systems' worst cond
+        a, rhs = assemble_reduced(project(sys_, q), sys_.domain, cfg)
+        return (torch.einsum("nk,ikm->inm", q, torch.linalg.solve(a, rhs)),
+                float(torch.linalg.cond(a).max()))
+
+    recheck_worst = 0.0
+    for s in recheck:
+        si = int(np.flatnonzero(study.sizes == s)[0])
+        q_s = study.q[si][:, :int(study.ncols[si])]
+        q = equally_distributed_basis(sys_, cfg, count=s)
+        rec = torch.einsum("nk,ikm->inm", q, sweep(project(sys_, q), cfg))
+        rec_study = torch.einsum("nk,ikm->inm", study.q[si], study.x[si])
+        rel, rel_study = frac(rec, x_full), float(study.rel_error[si])
+        gap = abs(rel - rel_study)
+        recheck_worst = max(recheck_worst, gap)
+        exact_study, _ = exact_reconstruction(q_s)
+        exact_re, cond = exact_reconstruction(q)
+        print(f"  serve study recompute seeds={s}: rel_error={rel!r} "
+              f"(study {rel_study!r}) |difference|={gap:.3e} "
+              f"(relative {gap / rel:.3e}); in units of |x_full|: "
+              f"reconstruction difference {frac(rec, rec_study):.3e}, "
+              f"with exact f64 reduced solves "
+              f"{frac(exact_re, exact_study):.3e}, LU vs exact "
+              f"{frac(rec_study, exact_study):.3e} (study) "
+              f"{frac(rec, exact_re):.3e} (recompute); "
+              f"subspace gap |Q_r - Q_s Q_s^T Q_r|="
+              f"{float(torch.linalg.norm(q - q_s @ (q_s.T @ q))):.3e}; "
+              f"max cond(reduced)={cond:.3e}",
+              flush=True)
+    print(f"  serve basis_size_study sizes={study.sizes[0]}..."
+          f"{study.sizes[-1]}: study_s={t_study:.3f} rel_error="
+          + json.dumps([float(f"{e:.3e}") for e in study.rel_error])
+          + f" max_rel_error_difference_vs_recompute={recheck_worst:.3e}",
+          flush=True)
+    check(bool(np.isfinite(study.rel_error).all()),
+          "non-finite rel_error in the study")
+    check(recheck_worst < 1e-10,
+          f"study rel_error vs independent recompute: {recheck_worst} "
+          ">= 1e-10")
+    return k4_launches
 
 
 def _waveguide_2d(p):
@@ -1403,9 +1666,12 @@ def main() -> int:
     with phase("kernels"):
         rec = kernel_phase(dev)
     with phase("slice"):
-        counts, sys_, gsm_full = slice_phase(dev)
+        counts, sys_, rm, gsm_full, x_full, t_full = slice_phase(dev)
     with phase("reduced_lu"):
         k4, k4_serve_s = reduced_lu_phase(dev, sys_, gsm_full)
+    with phase("serve"):
+        k4_checkpoint = serve_phase(dev, sys_, rm, gsm_full, x_full, t_full)
+    del rm, x_full
     with phase("matfree"):
         k4_matfree = matfree_phase(dev)
     with phase("general"):
@@ -1414,7 +1680,7 @@ def main() -> int:
         counts.update(krylov_phase(dev))
     with phase("complex"):
         k5_complex = complex_phase(dev, sys_, k4_serve_s)
-    counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree
+    counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree + k4_checkpoint
     counts["banded_matvec_padded"] += k5_complex
 
     kernels = []

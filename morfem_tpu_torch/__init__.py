@@ -29,6 +29,11 @@ from morfem_tpu_torch.ops.block_tridiag import (  # noqa: E402
     rcm_direct_solve,
     shifted_gmres_solve,
 )
+from morfem_tpu_torch.ops.spectral_solve import (  # noqa: E402
+    FullOrderSpectral,
+    prepare_spectral_full,
+    spectral_full_sweep,
+)
 from morfem_tpu_torch.mor.spectral import (  # noqa: E402
     QuadraticSpectralModel,
     SpectralModel,
@@ -44,12 +49,14 @@ from morfem_tpu_torch.mor.estimator import (  # noqa: E402
     operator_images,
 )
 from morfem_tpu_torch.ops.solve import (  # noqa: E402
+    gj_solve_refined,
     lu_solve_refined,
     solve_batch,
     solve_dense,
     solve_point,
     solve_sweep,
 )
+from morfem_tpu_torch.ops.blocked_inverse import gj_inverse_f32  # noqa: E402
 from morfem_tpu_torch.ops.complex_split import (  # noqa: E402
     embed_affine_system,
     solve_complex,
@@ -59,6 +66,10 @@ from morfem_tpu_torch.ops.complex_split import (  # noqa: E402
 from morfem_tpu_torch.mor.complex_model import sweep_complex_reduced  # noqa: E402
 from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree  # noqa: E402
 from morfem_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
+from morfem_tpu_torch.utils.checkpoint import (  # noqa: E402
+    load_reduced_model,
+    save_reduced_model,
+)
 
 __all__ = [
     "MorfemConfig",
@@ -78,6 +89,9 @@ __all__ = [
     "banded_via_rcm",
     "rcm_direct_solve",
     "shifted_gmres_solve",
+    "FullOrderSpectral",
+    "prepare_spectral_full",
+    "spectral_full_sweep",
     "prepare_spectral",
     "prepare_spectral_quadratic",
     "spectral_sweep",
@@ -91,7 +105,11 @@ __all__ = [
     "solve_sweep",
     "solve_dense",
     "lu_solve_refined",
+    "gj_solve_refined",
+    "gj_inverse_f32",
     "greedy_basis_matfree",
     "sweep_complex_reduced",
     "PhaseTimer",
+    "save_reduced_model",
+    "load_reduced_model",
 ]

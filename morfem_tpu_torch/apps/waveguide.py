@@ -29,6 +29,7 @@ from scipy.constants import epsilon_0 as EPSILON_0
 from scipy.constants import pi as PI
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
+from morfem_tpu_torch.device import resolve_device
 from morfem_tpu_torch.mor.api import _run_sweep, build_reduced_model
 from morfem_tpu_torch.ops.solve import solve_sweep
 from morfem_tpu_torch.system import AffineSystem
@@ -72,13 +73,11 @@ class WaveguideData(NamedTuple):
     synthetic: bool
 
 
-def synthesize_waveguide(
-    n: int, m: int = 2, seed: int = 2024, modes_in_band: int = 8
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Synthetic waveguide (C, T, WP): SPD C with `modes_in_band` modes in
-    the 3–5 GHz band, T ≈ I + small banded part, and port columns coupling
-    strongly to the in-band modes (the reference package's construction)."""
-    rng = np.random.default_rng(seed)
+def _spectral_ct_tt(rng, n: int, modes_in_band: int, shuffle: bool):
+    """SPD C = V·diag(λ)·Vᵀ with `modes_in_band` of λ inside the 3–5 GHz
+    k₀² band (off the 100-point grid), a tail below it and the bulk above,
+    and T = I + a small banded symmetric part. Returns (C, T, V, n_below);
+    with `shuffle` the λ are permuted before V is drawn."""
     k0sq_lo = (2 * PI * 3e9 / C_LIGHTSPEED) ** 2
     k0sq_hi = (2 * PI * 5e9 / C_LIGHTSPEED) ** 2
     n_below = max(2, n // 20)
@@ -90,6 +89,8 @@ def synthesize_waveguide(
             k0sq_hi * np.geomspace(1.3, 300.0, n - n_below - modes_in_band),
         ]
     )
+    if shuffle:
+        rng.shuffle(lam)
     v, _ = np.linalg.qr(rng.standard_normal((n, n)))
     c_mat = (v * lam) @ v.T
     c_mat = (c_mat + c_mat.T) / 2
@@ -99,6 +100,29 @@ def synthesize_waveguide(
         idx = np.arange(n - k)
         t_band[idx, idx + k] = d
     t_mat = np.eye(n) + 0.05 * (t_band + t_band.T)
+    return c_mat, t_mat, v, n_below
+
+
+def synthesize_ct_tt(
+    n: int, seed: int = 2024, modes_in_band: int = 8
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic stand-ins for the missing Ct/Tt blobs: SPD (C, T)
+    whose generalized spectrum has exactly `modes_in_band` modes in the
+    3–5 GHz band (the reference package's numbers for the same seed)."""
+    c_mat, t_mat, _, _ = _spectral_ct_tt(
+        np.random.default_rng(seed), n, modes_in_band, shuffle=True)
+    return c_mat, t_mat
+
+
+def synthesize_waveguide(
+    n: int, m: int = 2, seed: int = 2024, modes_in_band: int = 8
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Synthetic waveguide (C, T, WP): the (C, T) of `_spectral_ct_tt` and
+    port columns coupling strongly to the in-band modes plus a broadband
+    background (the reference package's construction and numbers)."""
+    rng = np.random.default_rng(seed)
+    c_mat, t_mat, v, n_below = _spectral_ct_tt(rng, n, modes_in_band,
+                                               shuffle=False)
     v_band = v[:, n_below:n_below + modes_in_band]
     alpha = rng.uniform(0.5, 1.5, size=(modes_in_band, m)) * rng.choice(
         [-1.0, 1.0], size=(modes_in_band, m)
@@ -236,3 +260,18 @@ def mor_gsm(
         )
     return gsm, rm, greedy_result
 
+
+
+def equally_distributed_points(source, amount: int,
+                               device="cuda") -> torch.Tensor:
+    """Evenly spaced subset of a grid (indices ``linspace(0, I−1, amount)``
+    truncated); raises when `amount` exceeds the grid's length. A tensor
+    `source` keeps its device; any other grid is put on `device`."""
+    if not isinstance(source, torch.Tensor):
+        source = torch.as_tensor(source, device=resolve_device(device))
+    if amount > source.shape[0]:
+        raise ValueError(
+            "amount can't be greater than the number of points in the source"
+        )
+    idx = np.linspace(0, source.shape[0] - 1, amount).astype(int)
+    return source[torch.as_tensor(idx, device=source.device)]

@@ -13,8 +13,9 @@ where the port differs.
 * ``use_pallas_reduced_sweep=True`` keeps the reference's name: the
   reduced LU sweep then runs the hand-written CUDA kernel K4
   (`ops/kernels/reduced_sweep.py`) in place of the batched library LU.
-* ``"gj"`` (the blocked Gauss–Jordan inverse) belongs to a later slice of
-  the port and raises `NotImplementedError` here.
+* ``"gj"`` solves real operators through the blocked Gauss–Jordan f32
+  inverse with f64 refinement (`ops/solve.py::gj_solve_refined`), point
+  by point, as in the reference.
 * ``panel_width`` keeps the reference's multiple-of-128 rule: the panel LU
   factors the same panels as the reference, so its pivot sequences match.
 """
@@ -75,11 +76,6 @@ class MorfemConfig:
         if not 0.0 <= self.equally_distributed_reduction_rate < 1.0:
             raise ValueError(
                 "equally_distributed_reduction_rate must be in [0, 1)"
-            )
-        if self.factorization == "gj":
-            raise NotImplementedError(
-                "factorization='gj' (blocked Gauss-Jordan inverse) is ported "
-                "in slice 4 of the PyTorch port"
             )
 
     def replace(self, **kw) -> "MorfemConfig":

@@ -11,6 +11,8 @@ The operator keeps only the nonzeros, packed once into row sectors
 the blocks themselves, the reference's storage). Two application paths,
 as in the reference:
 
+  * `bsr_matmul` — plain torch in any dtype over the blocks themselves
+    (the reference's XLA product: gather, batched product, segment sum).
   * `sector_matmul_plain` — plain torch in any dtype over the packing. The
     f64 path of residuals, projections and the estimator.
   * `bsr_matmul_f32` — the CUDA kernel K6 (`ops/kernels/block_sparse.py`)
@@ -74,6 +76,26 @@ def bsr_from_scipy(
     brows = (union // nbc).astype(np.int32)
     bcols = (union % nbc).astype(np.int32)
     return vals, brows, bcols, nbr, nbc
+
+
+def bsr_matmul(vals, brows, bcols, nbr: int, nbc: int, n: int,
+               x: torch.Tensor) -> torch.Tensor:
+    """y = A·x over the blocks in x's dtype: vals [nb, BR, BC], brows and
+    bcols [nb] (sorted by block row), x [N, M] or [N]."""
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[:, None]
+    br, bc = vals.shape[-2], vals.shape[-1]
+    m = x.shape[1]
+    xp = torch.zeros((nbc * bc, m), dtype=x.dtype, device=x.device)
+    xp[:n] = x
+    gathered = xp.reshape(nbc, bc, m)[
+        torch.as_tensor(bcols, device=x.device).long()]
+    yb = vals.to(x.dtype) @ gathered  # [nb, BR, M]
+    y = torch.zeros((nbr, br, m), dtype=x.dtype, device=x.device)
+    y.index_add_(0, torch.as_tensor(brows, device=x.device).long(), yb)
+    y = y.reshape(nbr * br, m)[:n]
+    return y[:, 0] if squeeze else y
 
 
 class BlockSparseAffineOperator:

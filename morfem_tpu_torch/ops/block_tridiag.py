@@ -20,7 +20,10 @@ resonance), `shifted_gmres_solve` escalates: GMRES preconditioned by the
 same factorization of the complex-shifted matrix A − iσs·I, applied
 through the real 2b embedding of each block, as the reference does.
 
-``factorization="cr"`` (cyclic reduction) is not ported yet and raises.
+``factorization="cr"`` takes block cyclic reduction instead of the
+block-Thomas chain: ⌈log₂ nb⌉ levels, each one batched inverse of the raw
+odd diagonal blocks and a few batched products (`cyclic_reduction_factor`),
+with the same f64 refinement around it.
 """
 
 from __future__ import annotations
@@ -124,6 +127,96 @@ def block_tridiag_apply(factors: BlockTridiagFactors,
     return x.reshape(nb * b, m)[:n]
 
 
+class CRLevel(NamedTuple):
+    """One cyclic-reduction level (all arrays batched over block index)."""
+
+    a: torch.Tensor  # [h, b, b] = L_even·D_odd_left⁻¹
+    bm: torch.Tensor  # [h, b, b] = U_even·D_odd_right⁻¹
+    dinv: torch.Tensor  # [h, b, b] = D_odd⁻¹
+    lo: torch.Tensor  # [h, b, b] odd-block L (for back-substitution)
+    uo: torch.Tensor  # [h, b, b] odd-block U
+
+
+class CRFactors(NamedTuple):
+    levels: Tuple  # CRLevel per reduction level
+    dinv_root: torch.Tensor  # [b, b] inverse of the final single block
+    n: int  # true row count
+
+
+def _shift_down(x: torch.Tensor) -> torch.Tensor:
+    """x[k] → x[k−1] with a leading zero block (batched)."""
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+
+
+def cyclic_reduction_factor(l, d, u, n: int) -> CRFactors:
+    """Block cyclic reduction in f32: each level eliminates every ODD
+    block at once,
+
+        D'_k = D_2k − L_2k·D_2k−1⁻¹·U_2k−1 − U_2k·D_2k+1⁻¹·L_2k+1
+        L'_k = −L_2k·D_2k−1⁻¹·L_2k−1,   U'_k = −U_2k·D_2k+1⁻¹·U_2k+1
+
+    so a level is one batched inverse and a few batched products, and
+    ⌈log₂ nb⌉ levels exist. The RAW odd diagonal blocks are inverted (no
+    Schur complement stands between them and a near-singular block, so
+    this is more fragile than block Thomas on indefinite pencils). Odd
+    block counts are padded with decoupled identity blocks.
+    """
+    f32 = torch.float32
+    l, d, u = l.to(f32), d.to(f32), u.to(f32)
+    levels = []
+    while d.shape[0] > 1:
+        if d.shape[0] % 2:
+            eye = torch.eye(d.shape[-1], dtype=f32, device=d.device)[None]
+            l = torch.cat([l, torch.zeros_like(l[:1])], dim=0)
+            u = torch.cat([u, torch.zeros_like(u[:1])], dim=0)
+            d = torch.cat([d, eye], dim=0)
+        lo, do, uo = l[1::2], d[1::2], u[1::2]
+        le, de, ue = l[0::2], d[0::2], u[0::2]
+        dinv = torch.linalg.inv_ex(do)[0]  # one batched inverse per level
+        a = le @ _shift_down(dinv)  # L_even·D_left⁻¹ (k=0 row → 0)
+        bm = ue @ dinv  # U_even·D_right⁻¹
+        levels.append(CRLevel(a=a, bm=bm, dinv=dinv, lo=lo, uo=uo))
+        l = -(a @ _shift_down(lo))
+        d = de - a @ _shift_down(uo) - bm @ lo
+        # the last even block's right neighbour is the (zero) boundary
+        u = torch.zeros_like(uo)
+        u[:-1] = -(bm[:-1] @ uo[:-1])
+    return CRFactors(levels=tuple(levels),
+                     dinv_root=torch.linalg.inv_ex(d[0])[0], n=n)
+
+
+def cyclic_reduction_apply(factors: CRFactors,
+                           rhs: torch.Tensor) -> torch.Tensor:
+    """Approximate A⁻¹·rhs with the CR factors (f32); rhs [N, M] → [N, M].
+
+    Forward: per level, fold the odd rows into the even system. Backward:
+    recover the odd rows by one batched product per level.
+    """
+    b = factors.dinv_root.shape[-1]
+    m = rhs.shape[1]
+    n = factors.n
+    nb0 = factors.levels[0].dinv.shape[0] * 2 if factors.levels else 1
+    r = torch.zeros((nb0 * b, m), dtype=torch.float32,
+                    device=factors.dinv_root.device)
+    r[:n] = rhs[:n]
+    r = r.reshape(nb0, b, m)
+    saved = []
+    for lev in factors.levels:
+        if r.shape[0] % 2:
+            r = torch.cat([r, torch.zeros_like(r[:1])], dim=0)
+        ro, re = r[1::2], r[0::2]
+        saved.append(ro)
+        r = re - lev.a @ _shift_down(ro) - lev.bm @ ro
+    x = factors.dinv_root[None] @ r  # [1, b, m]
+    for lev, ro in zip(reversed(factors.levels), reversed(saved)):
+        h = lev.dinv.shape[0]
+        x_even = x[:h]
+        x_next = torch.cat([x_even[1:], torch.zeros_like(x_even[:1])], dim=0)
+        x_odd = lev.dinv @ (ro - lev.lo @ x_even - lev.uo @ x_next)
+        x = torch.stack([x_even, x_odd], dim=1).reshape(2 * h, b, m)
+    return x.reshape(-1, m)[:n]
+
+
 def _norm(x: torch.Tensor) -> float:
     return float(torch.linalg.norm(x))
 
@@ -145,22 +238,25 @@ def banded_direct_solve(
     residual target (refinement stops at tol·‖rhs‖); None refines to
     working precision. Refinement stops when the residual is below target,
     stops improving by 3 %, or after ``refine_iterations`` steps.
+    ``factorization``: "scan" (block Thomas, the default) or "cr" (cyclic
+    reduction).
     """
-    if factorization == "cr":
-        raise NotImplementedError(
-            "factorization='cr' (block cyclic reduction) is ported in "
-            "slice 4 of the PyTorch port; use the default 'scan'"
-        )
-    if factorization != "scan":
+    if factorization not in ("scan", "cr"):
         raise ValueError(f"factorization must be 'scan' or 'cr', got "
                          f"{factorization!r}")
     band_t = combine_addends(c, op.bands_w)
     b = block or max(128, _round_up(op.half, 128))
-    factors = block_tridiag_factor(*band_to_blocks(band_t, op.half, b), op.n)
+    blocks = band_to_blocks(band_t, op.half, b)
+    if factorization == "cr":
+        factors = cyclic_reduction_factor(*blocks, op.n)
+        apply = cyclic_reduction_apply
+    else:
+        factors = block_tridiag_factor(*blocks, op.n)
+        apply = block_tridiag_apply
     mv = op.bind_precise(c)
 
     def apply_factor(r):
-        return block_tridiag_apply(factors, r).to(rhs.dtype)
+        return apply(factors, r).to(rhs.dtype)
 
     x = apply_factor(rhs)
     b_norm = torch.linalg.norm(rhs, dim=0)

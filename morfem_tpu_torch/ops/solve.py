@@ -12,6 +12,9 @@ have no counterpart here.
 Batched full-order sweeps of real systems with a float32 factor on a CUDA
 device go to the blocked panel LU (`ops/panel_lu.py`) under
 ``factorization="auto"``, as the reference routes them on its accelerator.
+``factorization="gj"`` solves real operators through the blocked
+Gauss–Jordan inverse (`gj_solve_refined`, `ops/blocked_inverse.py`), point
+by point.
 """
 
 from __future__ import annotations
@@ -85,6 +88,83 @@ def _refine_adaptive(a, b, x0, apply_factor, refine_iterations: int):
     return x
 
 
+def gj_solve_refined(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    refine_iterations: int = 2,
+    panel: int = 256,
+    sub: int = 8,
+) -> torch.Tensor:
+    """Solve ``a @ x = b`` through the blocked Gauss–Jordan f32 inverse
+    + refinement in the working dtype.
+
+    Real operators only. A complex right-hand side rides the same real
+    inverse as a stacked [Re(b) | Im(b)] solve. Every apply of the inverse
+    is an f32-true product (a coarser one would enter the refinement's
+    iteration matrix as ‖E‖·cond(A) and diverge it): a plain FP32 `@` with
+    TF32 off (`NUMERICS.md` row 33).
+    """
+    from morfem_tpu_torch.ops.blocked_inverse import gj_inverse_f32
+
+    if a.is_complex():
+        raise ValueError(
+            "gj_solve_refined factorizes real operators only; use "
+            "lu_solve_refined (or the split-real path) for complex systems"
+        )
+    work = torch.promote_types(a.dtype, b.dtype)
+    ainv = gj_inverse_f32(a, panel=panel, sub=sub)
+    complex_rhs = work.is_complex
+
+    def apply_factor(rhs):
+        if complex_rhs:
+            m = rhs.shape[-1]
+            stacked = torch.cat([rhs.real, rhs.imag], dim=-1)
+            sol = ainv @ stacked.to(torch.float32)
+            sol = sol.to(rhs.real.dtype)
+            return torch.complex(sol[..., :m], sol[..., m:]).to(work)
+        return (ainv @ rhs.to(torch.float32)).to(work)
+
+    x = apply_factor(b)
+    if refine_iterations > 0 and (_bits(work) > 32 or complex_rhs):
+        x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
+    return x
+
+
+def inv_refined(
+    a: torch.Tensor,
+    *,
+    factor_dtype=torch.float32,
+    refine_iterations: int = 2,
+) -> torch.Tensor:
+    """Matrix inverse by LU in `factor_dtype` + a fixed number of
+    refinement steps in a's dtype (leading batch axes allowed)."""
+    work = a.dtype
+    eye = torch.eye(a.shape[-1], dtype=work, device=a.device).expand(
+        a.shape)
+    lu, piv = torch.linalg.lu_factor(a.to(factor_dtype))
+    x = torch.linalg.lu_solve(lu, piv, eye.to(factor_dtype)).to(work)
+    if refine_iterations > 0 and _bits(work) > _bits(factor_dtype):
+        for _ in range(refine_iterations):
+            r = eye - a @ x
+            x = x + torch.linalg.lu_solve(lu, piv, r.to(factor_dtype)).to(
+                work)
+    return x
+
+
+def use_gj_factorization(a_dtype: torch.dtype, n: int,
+                         config: MorfemConfig) -> bool:
+    """Whether a dense solve takes the Gauss–Jordan backend: only under an
+    explicit ``factorization="gj"``, which refuses complex operators."""
+    if config.factorization == "gj":
+        if a_dtype.is_complex:
+            raise ValueError(
+                "factorization='gj' supports real operators only"
+            )
+        return True
+    return False
+
+
 def use_panel_factorization(
     a_dtype: torch.dtype, config: MorfemConfig, device: torch.device
 ) -> bool:
@@ -116,12 +196,16 @@ def solve_dense(
     """Direct dense solve honouring `config.factorization`.
 
     Only an explicit ``"panel"`` sends a single solve through the panel
-    LU; ``"auto"`` keeps single solves on `torch.linalg` LU.
+    LU; ``"gj"`` takes the Gauss–Jordan inverse; ``"auto"`` keeps single
+    solves on `torch.linalg` LU.
     """
     if config.factorization == "panel" and not a.dtype.is_complex:
         from morfem_tpu_torch.ops.panel_lu import solve_batch_panel
 
         return solve_batch_panel(a[None], b[None], config)[0]
+    if use_gj_factorization(a.dtype, a.shape[-1], config):
+        return gj_solve_refined(
+            a, b, refine_iterations=config.refine_iterations)
     return lu_solve_refined(
         a,
         b,

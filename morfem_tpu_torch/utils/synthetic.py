@@ -1,15 +1,161 @@
-"""Synthetic large-N test systems (NumPy/SciPy, no device).
+"""Synthetic test systems.
 
-Port copies of `morfem_tpu/utils/synthetic.py::banded_waveguide_system`
-and `banded_waveguide_system_2d`, bit for bit: the same seeds give the
-same SciPy matrices in both packages. They stand in for the reference's
-~34k-DOF waveguide stress case on the matrix-free route. The rest of that
-module (the dense generators) belongs to a later slice of the port.
+Counterpart of `morfem_tpu/utils/synthetic.py`. The two banded large-N
+generators (`banded_waveguide_system`, `banded_waveguide_system_2d`) are
+NumPy/SciPy copies, bit for bit: the same seeds give the same SciPy
+matrices in both packages. They stand in for the reference's ~34k-DOF
+waveguide stress case on the matrix-free route.
+
+The dense generators (`diagonal_heavy_matrix`, `random_affine_system`,
+`waveguide_like_system`) return tensors on a device. The JAX package keys
+them on `jax.random`, whose streams PyTorch cannot reproduce, so here they
+take a ``seed`` (an int or a `torch.Generator`; draws are made on the CPU,
+so one seed gives the same matrices on every device) and keep each
+generator's documented properties, not its numbers. Parity tests feed one
+package's arrays to both pipelines.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from morfem_tpu_torch.device import resolve_device
+
+
+def _generator(seed) -> torch.Generator:
+    """A CPU `torch.Generator` from an int seed (or the generator given)."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator().manual_seed(int(seed))
+
+
+def diagonal_heavy_matrix(
+    seed,
+    size: int,
+    max_abs_value: float = 10.0,
+    density: float = 0.5,
+    dtype=torch.float64,
+    device="cuda",
+) -> torch.Tensor:
+    """Random matrix with nonzeros concentrated around the diagonal.
+
+    The probability that the d-th off-diagonal is populated decays
+    geometrically with |d|, and populated diagonals are scaled by the same
+    decaying factor (one keep/drop draw per diagonal offset, as the
+    reference's per-diagonal coin flip); the main diagonal is always kept
+    at weight 1. Values are uniform in ±max_abs_value before scaling.
+    """
+    g = _generator(seed)
+    density = float(min(max(density, 0.0), 1.0))
+    i = np.arange(size)
+    dist = np.abs(i[:, None] - i[None, :])
+    band = np.geomspace(1.0, 1.0 + density, num=max(size, 2)) - 1.0
+    decay = np.where(dist == 0, 1.0,
+                     band[np.clip(size - 1 - dist, 0, size - 1)])
+    decay = torch.from_numpy(decay)
+    vals = (torch.rand((size, size), generator=g, dtype=torch.float64) * 2
+            - 1) * max_abs_value
+    keep_band = torch.rand(size, generator=g, dtype=torch.float64)
+    keep = keep_band[torch.from_numpy(dist)] <= decay
+    out = vals * decay * keep.to(torch.float64)
+    return out.to(device=resolve_device(device), dtype=dtype)
+
+
+def random_affine_system(
+    seed,
+    n: int = 64,
+    m: int = 2,
+    num_points: int = 32,
+    t_lo: float = 3.0,
+    t_hi: float = 5.0,
+    dtype=torch.float64,
+    symmetric: bool = True,
+    device="cuda",
+):
+    """A well-posed random parametric affine system for tests:
+    (domain, a0, a1, a2, b) with A(t) = a0 + t·a1 + t²·a2 safely invertible
+    over [t_lo, t_hi] (a0 carries a diagonal shift of 2 + t_hi², and the
+    random parts have entries of scale 1/n)."""
+    g = _generator(seed)
+    f64 = torch.float64
+
+    def mat():
+        a = torch.randn((n, n), generator=g, dtype=f64) / n
+        return (a + a.T) * 0.5 if symmetric else a
+
+    a0 = mat() + torch.eye(n, dtype=f64) * (2.0 + t_hi**2)
+    a1 = mat()
+    a2 = mat()
+    b = torch.randn((n, m), generator=g, dtype=f64)
+    domain = torch.linspace(t_lo, t_hi, num_points, dtype=f64)
+    dev = resolve_device(device)
+    return tuple(x.to(device=dev, dtype=dtype)
+                 for x in (domain, a0, a1, a2, b))
+
+
+def waveguide_like_system(
+    seed,
+    n: int = 512,
+    m: int = 2,
+    num_points: int = 100,
+    f_lo: float = 3e9,
+    f_hi: float = 5e9,
+    n_inband: int = 12,
+    dtype=torch.float64,
+    device="cuda",
+):
+    """Synthetic stand-in for the bundled waveguide: (domain, C, Γ, B).
+
+    The pencil's spectrum is set exactly, as in the reference: C = R·VΛVᵀ·Rᵀ
+    and T = R·Rᵀ with V orthogonal and R = I + 0.3·G/√n, so the (C, T)
+    eigenvalues are Λ: ``n_inband`` of them uniform in the band's
+    (2πf/c)² range (each at least a third of a grid spacing from every
+    sample point), ~4 % below it, the rest log-spaced up to 60× above it.
+    Γ = −(2π/c)²·T, for the wave form C + f²·Γ. B has a few entries in
+    [0.5, 1] per port column. Use as a0 = C, a1 = 0, a2 = Γ.
+    """
+    from scipy.constants import c as c_lightspeed
+
+    g = _generator(seed)
+    f64 = torch.float64
+    host = np.random.default_rng(
+        int(torch.randint(0, 2**62, (1,), generator=g)))
+    k_lo2 = (2 * np.pi * f_lo / c_lightspeed) ** 2
+    k_hi2 = (2 * np.pi * f_hi / c_lightspeed) ** 2
+    n_low = max(1, n // 25)
+    n_high = n - n_inband - n_low
+    lam_in = host.uniform(k_lo2 * 1.02, k_hi2 * 0.98, size=n_inband)
+    grid_k2 = (
+        2 * np.pi * np.linspace(f_lo, f_hi, num_points) / c_lightspeed
+    ) ** 2
+    spacing = np.min(np.diff(grid_k2))
+    for _ in range(4):
+        d = np.abs(lam_in[:, None] - grid_k2[None, :]).min(axis=1)
+        lam_in = np.where(d < spacing / 3, lam_in + spacing / 2, lam_in)
+    lam_low = host.uniform(0.15 * k_lo2, 0.75 * k_lo2, size=n_low)
+    lam_high = np.exp(
+        host.uniform(np.log(1.15 * k_hi2), np.log(60 * k_hi2), size=n_high)
+    )
+    lam = torch.from_numpy(
+        np.sort(np.concatenate([lam_low, lam_in, lam_high])))
+    v, _ = torch.linalg.qr(torch.randn((n, n), generator=g, dtype=f64))
+    r = torch.eye(n, dtype=f64) + 0.3 * torch.randn(
+        (n, n), generator=g, dtype=f64) / np.sqrt(n)
+    c_mat = r @ ((v * lam[None, :]) @ v.T) @ r.T
+    t_mat = r @ r.T
+    c_mat = (c_mat + c_mat.T) * 0.5
+    t_mat = (t_mat + t_mat.T) * 0.5
+    nnz = max(4, n // 64)
+    b = np.zeros((n, m))
+    for j in range(m):
+        rows = host.choice(n, size=nnz, replace=False)
+        b[rows, j] = host.uniform(0.5, 1.0, size=nnz)
+    gamma = -t_mat * ((2 * np.pi / c_lightspeed) ** 2)
+    domain = torch.linspace(f_lo, f_hi, num_points, dtype=f64)
+    dev = resolve_device(device)
+    return tuple(x.to(device=dev, dtype=dtype)
+                 for x in (domain, c_mat, gamma, torch.from_numpy(b)))
 
 
 def banded_waveguide_system(

@@ -218,9 +218,11 @@ def test_banded_direct_solve_matches():
     assert float(relres.max()) < 1e-13
     # the refinement takes the same number of steps (±1: f32 factors)
     assert abs(it - int(it_j)) <= 1
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tbt.banded_direct_solve(op_t, torch.from_numpy(c),
-                                torch.from_numpy(rhs), factorization="cr")
+    # cyclic reduction is ported: the same solution within 1e-12
+    x_cr, relres_cr, _ = tbt.banded_direct_solve(
+        op_t, torch.from_numpy(c), torch.from_numpy(rhs), factorization="cr")
+    assert np.abs(_np(x_cr) - ref).max() <= 1e-12 * np.abs(ref).max()
+    assert float(relres_cr.max()) < 1e-13
 
 
 def test_banded_via_rcm_gives_the_reference_permutation():

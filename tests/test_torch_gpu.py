@@ -706,3 +706,95 @@ def test_sweep_complex_reduced_defaults_to_the_card(cuda):
     x_cpu = sweep_complex_reduced(r0, r1, r2, b_r, grid, *fns, device="cpu")
     assert torch.linalg.norm(x.cpu() - x_cpu) < 1e-12 * torch.linalg.norm(
         x_cpu)
+
+
+def _small_waveguide_system(dev, n=400, pts=40):
+    from morfem_tpu_torch.apps.waveguide import (
+        load_waveguide_data, waveguide_system,
+    )
+
+    data = load_waveguide_data(n_fallback=n)
+    return waveguide_system(np.linspace(3e9, 5e9, pts), data, device=dev)
+
+
+def test_checkpoint_loads_onto_the_card_and_k4_sweeps_it(cuda, tmp_path):
+    """A model saved from the card loads back onto it, and K4 sweeps the
+    loaded model bit for bit as the in-memory one."""
+    from morfem_tpu_torch import (
+        MorfemConfig, build_reduced_model, load_reduced_model,
+        save_reduced_model, sweep,
+    )
+    from morfem_tpu_torch.apps.waveguide import b_coefficient
+
+    sys_ = _small_waveguide_system(cuda)
+    rm = build_reduced_model(sys_, MorfemConfig(error_threshold=1e-10))[0]
+    rm = rm.trim()
+    path = str(tmp_path / "wg.npz")
+    save_reduced_model(path, rm)
+    loaded = load_reduced_model(path, t_b=b_coefficient, device=cuda)
+    assert loaded.q.device == sys_.device and loaded.ncols == rm.ncols
+    cfg = MorfemConfig(sweep_method="lu", use_pallas_reduced_sweep=True)
+    ts = torch.linspace(3e9, 5e9, 1000, dtype=torch.float64, device=cuda)
+    reset_launch_counts()
+    x_loaded = sweep(loaded, cfg, ts)
+    per_sweep = launch_counts()["gauss_jordan_sweep_solve"]
+    x_mem = sweep(rm, cfg, ts)
+    torch.cuda.synchronize()
+    # K4 solves, then solves once more per f64 refinement pass
+    assert per_sweep > 0
+    assert launch_counts()["gauss_jordan_sweep_solve"] == 2 * per_sweep
+    assert torch.equal(x_loaded, x_mem)
+
+
+def test_spectral_full_sweep_on_the_card(cuda):
+    from morfem_tpu_torch import prepare_spectral_full, spectral_full_sweep
+    from morfem_tpu_torch.ops.assembly import assemble_at
+
+    sys_ = _small_waveguide_system(cuda)
+    fs = prepare_spectral_full(sys_)
+    assert fs.back.device == sys_.device
+    x = spectral_full_sweep(fs, chunk=16)
+    for i in (0, 17, 39):
+        a, b = assemble_at(sys_, sys_.domain[i])
+        ref = torch.linalg.solve(a, b)
+        assert torch.linalg.norm(x[i] - ref) < 1e-9 * torch.linalg.norm(ref)
+
+
+def test_gj_and_cr_on_the_card(cuda):
+    """The Gauss–Jordan solve and cyclic reduction run on the card and
+    agree with the card's f64 solves."""
+    from morfem_tpu_torch import gj_solve_refined
+    from morfem_tpu_torch.ops.block_tridiag import (
+        banded_direct_solve, banded_via_rcm,
+    )
+    from morfem_tpu_torch.utils.synthetic import banded_waveguide_system_2d
+
+    rng = np.random.default_rng(6)
+    a = _t(rng.standard_normal((300, 300)) + 30 * np.eye(300), cuda)
+    b = _t(rng.standard_normal((300, 2)), cuda)
+    x = gj_solve_refined(a, b, refine_iterations=25)
+    ref = torch.linalg.solve(a, b)
+    assert torch.linalg.norm(x - ref) < 1e-12 * torch.linalg.norm(ref)
+    c_sp, t_sp, wp = banded_waveguide_system_2d(36, m=2, seed=1)
+    op, perm = banded_via_rcm(c_sp, 0.0 * c_sp, -1e-16 * t_sp, device=cuda)
+    rhs = _t(wp, cuda)[perm]
+    cf = torch.tensor([1.0, 0.0, 4e9 ** 2], dtype=torch.float64,
+                      device=cuda)
+    x_cr = banded_direct_solve(op, cf, rhs, factorization="cr")[0]
+    x_sc = banded_direct_solve(op, cf, rhs)[0]
+    assert torch.linalg.norm(x_cr - x_sc) < 1e-10 * torch.linalg.norm(x_sc)
+
+
+def test_studies_helpers_default_to_the_card(cuda):
+    """`upscale_interpolate` resamples on the card by default and equals
+    its CPU result; `equally_distributed_points` puts a NumPy grid there."""
+    from morfem_tpu_torch.apps.studies import upscale_interpolate
+    from morfem_tpu_torch.apps.waveguide import equally_distributed_points
+
+    a = np.random.default_rng(4).standard_normal((60, 60))
+    x = upscale_interpolate(a, 2.5)
+    y = upscale_interpolate(a, 2.5, device="cpu")
+    assert isinstance(x, np.ndarray) and x.shape == (150, 150)
+    assert np.abs(x - y).max() <= 1e-12 * np.abs(y).max()
+    pts = equally_distributed_points(np.linspace(3e9, 5e9, 11), 4)
+    assert pts.device.type == "cuda"

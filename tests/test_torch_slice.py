@@ -108,8 +108,10 @@ def test_config_rejects_what_the_reference_rejects(bad):
               dict(factorization="gj", use_pallas_reduced_sweep=True)]
 )
 def test_config_names_later_slices(later):
-    with pytest.raises(NotImplementedError, match="slice"):
-        pt.MorfemConfig(**later)
+    """The configurations an earlier slice refused are ported now: both
+    packages accept them with the same fields."""
+    assert (dataclasses.asdict(pt.MorfemConfig(**later))
+            == dataclasses.asdict(mt.MorfemConfig(**later)))
 
 
 def test_config_accepts_the_fused_reduced_sweep():
@@ -129,6 +131,13 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.sweep_complex_reduced(r, r, r, np.ones(3), domain,
                                  *(lambda t: t,) * 4)
+    from morfem_tpu_torch.apps.studies import upscale_interpolate
+    from morfem_tpu_torch.apps.waveguide import equally_distributed_points
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        upscale_interpolate(np.eye(4), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        equally_distributed_points(domain, 3)
 
 
 def test_unported_inputs_name_their_slice():
@@ -405,18 +414,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-# names the JAX package exports that later slices of the port bring
-LATER_SLICE_EXPORTS = {
-    "FullOrderSpectral", "prepare_spectral_full", "spectral_full_sweep",
-    "gj_solve_refined", "gj_inverse_f32", "save_reduced_model",
-    "load_reduced_model",
-}
-
-
 def test_root_exports_match_the_reference_less_later_slices():
-    assert LATER_SLICE_EXPORTS <= set(mt.__all__)
-    assert pt.__all__ == [n for n in mt.__all__
-                          if n not in LATER_SLICE_EXPORTS]
+    """Every name the JAX package exports is exported by the port, in the
+    same order (no later slice is left out any more)."""
+    assert pt.__all__ == mt.__all__
     for name in pt.__all__ + ["embed_affine_system", "solve_complex",
                               "solve_complex_split", "split_solution"]:
         assert callable(getattr(pt, name)) or name == "DEFAULT_CONFIG"
