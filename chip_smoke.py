@@ -58,10 +58,26 @@ Phases, each printing one progress line with its seconds and numbers:
                launch: the embedded model is not swept), and (c) the same
                physics as real operators with a complex t_a2, each against
                complex spsolve at 3 points; (d) the BiCGStab greedy on the
-               embedding of a complex banded pencil (K5).
+               embedding of a complex banded pencil (K5);
+ 11. parallel — the multi-GPU layer on torch.distributed: a singular
+               Schur block factors to non-finite values (no exception);
+               (a) one NCCL rank in this process, mesh (1,1,1): the sharded
+               full-order sweep (K1-K3) against the slice phase's sweep,
+               the sharded reduced and spectral sweeps at 10,000 points,
+               the tp projection and the tp Gauss-Jordan solve at
+               N=3411; (b) two ranks spawned on the one card over gloo
+               with CUDA tensors: sp=2 full-order sweep (K1-K3 on each
+               rank) and reduced sweep, tp=2 projection, Gauss-Jordan
+               solve, SPIKE on the N=34,225 pencil at 3 points against
+               the single-card banded direct solve, row-parallel BiCGStab
+               at N=4096, and dp=2 multi_geometry_mor on four waveguides
+               against a serial loop. Two ranks share one card's SMs and
+               memory: the phase's times show correctness and overhead,
+               not a speed-up.
 
 Each path's kernels are counted from zero over that path's run alone and
-must have launched; the kernels phase (3) holds K4-K6 against their plain
+must have launched (the parallel phase's ranks report theirs to this
+process, and K1-K3's totals include them); the kernels phase (3) holds K4-K6 against their plain
 versions too, at the shapes these paths give them: K4's warp variant at
 the build and serving grids and its block variant at K=84, bit for bit;
 K6 packed on the fly and through the Krylov operator's own packing; K3 at
@@ -93,7 +109,7 @@ import warnings
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
           "reduced_lu": 300, "serve": 900, "matfree": 600, "general": 600,
-          "krylov": 600, "complex": 900}
+          "krylov": 600, "complex": 900, "parallel": 600}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -1635,6 +1651,293 @@ def complex_phase(dev, sys_, k4_serve_s, p=P_34K, points=100,
     return counts["banded_matvec_padded"]
 
 
+# -- the parallel layer (torch.distributed) ---------------------------------
+
+GAMMA_SCALES = (1.00, 1.05, 1.10, 1.15)  # the dp phase's four waveguides
+
+
+def _rel(x, ref) -> float:
+    import torch
+
+    return float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+
+
+def _scaled_rel(x, ref) -> float:
+    """max |x − ref| over max |ref| (Galerkin projections: entries near
+    zero carry the roundoff of the large ones)."""
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def _mid_system(sys_):
+    """A(f) and b(f) of the waveguide at its middle grid point (f64)."""
+    from morfem_tpu_torch.ops.assembly import assemble_at
+
+    return assemble_at(sys_, sys_.domain[sys_.num_points // 2])
+
+
+def _dense_dd(n, dev, seed=3):
+    """A diagonally dominant symmetric f64 matrix and two right-hand sides."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)) / np.sqrt(n)
+    a = (a + a.T) / 2 + 3 * np.eye(n)
+    return (torch.from_numpy(a).to(dev),
+            torch.from_numpy(rng.standard_normal((n, 2))).to(dev))
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _parallel_rank(n_wave, q_trim, points, serve_points, p2d):
+    """Body of each of the two ranks of phase (b), on cuda:0 over gloo.
+
+    Every check that needs no reference from the parent runs here and
+    raises `CheckFailed`; returns (rank 0's outputs, the seconds of each
+    step, every rank's kernel launch counts)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from morfem_tpu_torch import (
+        MorfemConfig, equally_distributed_basis, project, sweep,
+    )
+    from morfem_tpu_torch.apps.waveguide import (
+        load_waveguide_data, waveguide_system,
+    )
+    from morfem_tpu_torch.mor.equally import seed_indices
+    from morfem_tpu_torch.ops.banded_matvec import combine_addends
+    from morfem_tpu_torch.ops.block_tridiag import (
+        banded_direct_solve, banded_via_rcm,
+    )
+    from morfem_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from morfem_tpu_torch.parallel import (
+        batch_systems, make_mesh, multi_geometry_mor,
+        sharded_full_order_sweep, sharded_sweep,
+        tp_operator_images_and_project, tp_solve, tp_solve_dense,
+    )
+    from morfem_tpu_torch.parallel.tp_banded import spike_solve
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sp2, tp2, dp2 = make_mesh(sp=2), make_mesh(tp=2), make_mesh(dp=2)
+    cfg = MorfemConfig(error_threshold=1e-10)
+    data = load_waveguide_data(n_fallback=n_wave)
+    freq = np.linspace(3e9, 5e9, points)
+    sys_ = waveguide_system(freq, data, device=dev)
+    rm = project(sys_, q_trim.to(dev))
+    secs, out = {}, {}
+    reset_launch_counts()
+
+    out["full"], secs["sp2_full_order_sweep"] = _timed(
+        lambda: sharded_full_order_sweep(sys_, sp2, cfg))
+    ts = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                        device=dev)
+    xs, secs["sp2_sweep"] = _timed(lambda: sharded_sweep(rm, sp2, cfg, ts=ts))
+    out["sweep_rel"] = _rel(xs, sweep(rm, cfg, ts))
+    check(out["sweep_rel"] < 1e-10,
+          f"sp=2 sharded_sweep: {out['sweep_rel']} >= 1e-10")
+
+    (u, r, b_r), secs["tp2_project"] = _timed(
+        lambda: tp_operator_images_and_project(sys_.operators(), sys_.b,
+                                               rm.q, tp2))
+    ref = (rm.r0, rm.r1, rm.r2)
+    out["project_err"] = max(
+        [_scaled_rel(u[k], a @ rm.q) for k, a in enumerate(sys_.operators())]
+        + [_scaled_rel(r[k], ref[k]) for k in range(3)]
+        + [_scaled_rel(b_r, rm.b_r)])
+    check(out["project_err"] < 1e-11,
+          f"tp=2 projection: {out['project_err']} >= 1e-11")
+
+    a_mid, b_mid = _mid_system(sys_)
+    x_gj, secs["tp2_solve_dense"] = _timed(
+        lambda: tp_solve_dense(a_mid, b_mid, tp2))
+    out["dense_rel"] = _rel(x_gj, torch.linalg.solve(a_mid, b_mid))
+    check(out["dense_rel"] < 1e-12,
+          f"tp=2 tp_solve_dense: {out['dense_rel']} >= 1e-12")
+
+    c_sp, zero, gamma, wp = _waveguide_2d(p2d)
+    op, perm = banded_via_rcm(c_sp, zero, gamma, device=dev)
+    b2d = torch.as_tensor(wp, device=dev)[perm]
+    spike = []
+    for i in np.linspace(0, len(freq) - 1, 3, dtype=int):
+        f = float(freq[i])
+        c = torch.tensor([1.0, f, f * f], dtype=torch.float64, device=dev)
+        (x_s, relres, iters), t_s = _timed(lambda: spike_solve(
+            combine_addends(c, op.bands_w), op.half, f * b2d, tp2,
+            tol=1e-12))
+        x_d = banded_direct_solve(op, c, f * b2d)[0]
+        spike.append((f, float(relres.max()), iters, _rel(x_s, x_d), t_s))
+        check(float(relres.max()) < 1e-10,
+              f"tp=2 spike_solve at f={f}: relres {relres.tolist()}")
+        check(_rel(x_s, x_d) < 1e-8,
+              f"tp=2 spike_solve at f={f}: {_rel(x_s, x_d)} from the "
+              "single-card banded direct solve")
+    out["spike"] = spike
+    secs["tp2_spike_3_points"] = sum(s[4] for s in spike)
+
+    a_dd, b_dd = _dense_dd(4096, dev)
+    (x_k, relres_k), secs["tp2_tp_solve"] = _timed(
+        lambda: tp_solve(a_dd, b_dd, tp2, tol=1e-12))
+    out["krylov"] = (float(relres_k.max()),
+                     _rel(x_k, torch.linalg.solve(a_dd, b_dd)))
+    check(out["krylov"][0] < 1e-10,
+          f"tp=2 tp_solve relres {out['krylov'][0]} >= 1e-10")
+
+    systems = [waveguide_system(freq, data._replace(
+        t_mat=data.t_mat * s), device=dev) for s in GAMMA_SCALES]
+    sidx = seed_indices(points, cfg, count=20)
+    s0 = systems[0]
+    (x_g, q_g), secs["dp2_multi_geometry_mor"] = _timed(
+        lambda: multi_geometry_mor(*batch_systems(systems), sidx,
+                                   (s0.t_a0, s0.t_a1, s0.t_a2, s0.t_b), cfg,
+                                   mesh=dp2))
+    worst = 0.0
+    for k, sg in enumerate(systems):
+        qs = equally_distributed_basis(sg, cfg, count=20)
+        rec_s = torch.einsum("nk,ikm->inm", qs, sweep(project(sg, qs), cfg))
+        worst = max(worst, _rel(torch.einsum("nk,ikm->inm", q_g[k], x_g[k]),
+                                rec_s))
+    out["multi_geometry_rel"] = worst
+    check(worst < 1e-9, f"dp=2 multi_geometry_mor: {worst} >= 1e-9")
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, launch_counts())
+    return out, secs, counts
+
+
+def parallel_phase(dev, sys_, rm, x_full, smi, serve_points=10000,
+                   p2d=P_34K):
+    """The parallel layer on the card: (a) one NCCL rank in this process
+    on a (1, 1, 1) mesh — the sharded full-order sweep against the slice
+    phase's `x_full`, the sharded reduced and spectral sweeps at 10,000
+    points, the tp projection and the tp Gauss–Jordan solve; (b) two ranks
+    spawned on the one card over gloo with CUDA tensors (`_parallel_rank`).
+    Also the singular-Schur-block check of the banded direct solve.
+    Returns the kernels' launches of (a) and of every rank of (b)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from morfem_tpu_torch import MorfemConfig, prepare_spectral, sweep
+    from morfem_tpu_torch.ops.block_tridiag import block_tridiag_factor
+    from morfem_tpu_torch.ops.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from morfem_tpu_torch.parallel import (
+        make_mesh, sharded_full_order_sweep, sharded_spectral_sweep,
+        sharded_sweep, tp_operator_images_and_project, tp_solve_dense,
+    )
+    from morfem_tpu_torch.parallel.launch import run_spmd
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.strip()
+    print(f"  parallel: {smi}, compute mode {mode}; two ranks on one card "
+          "share its SMs and memory: the times show correctness and "
+          "overhead, not a speed-up", flush=True)
+
+    # a singular Schur complement factors to non-finite values, no raise
+    d = torch.eye(128, device=dev).repeat(2, 1, 1)
+    d[0, 127, 127] = 0.0
+    fac = block_tridiag_factor(torch.zeros_like(d), d, torch.zeros_like(d),
+                               256)
+    check(not bool(torch.isfinite(fac.g[0]).all()),
+          "a singular Schur block factored to finite values")
+    print("  parallel: singular Schur block -> non-finite factor "
+          "(no exception)", flush=True)
+
+    cfg = MorfemConfig(error_threshold=1e-10)
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}",
+            rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1, 1)
+            reset_launch_counts()
+            x, secs["a_full_order_sweep"] = _timed(
+                lambda: sharded_full_order_sweep(sys_, mesh, cfg))
+            counts_a = launch_counts()
+            rel_full = _rel(x, x_full)
+            ts = torch.linspace(3e9, 5e9, serve_points, dtype=torch.float64,
+                                device=dev)
+            xs, secs["a_sweep"] = _timed(
+                lambda: sharded_sweep(rm, mesh, cfg, ts=ts))
+            rel_sweep = _rel(xs, sweep(rm, cfg, ts))
+            sm = prepare_spectral(rm, cfg)
+            xq, secs["a_spectral_sweep"] = _timed(
+                lambda: sharded_spectral_sweep(sm, mesh, ts=ts))
+            rel_spec = _rel(xq, sm.sweep(ts))
+            (u, r, b_r), secs["a_project"] = _timed(
+                lambda: tp_operator_images_and_project(
+                    sys_.operators(), sys_.b, rm.q, mesh))
+            ref = (rm.q.T @ (a @ rm.q) for a in sys_.operators())
+            err_proj = max([_scaled_rel(r[k], rk) for k, rk in
+                            enumerate(ref)] + [_scaled_rel(b_r, rm.q.T @
+                                                           sys_.b)])
+            a_mid, b_mid = _mid_system(sys_)
+            x_gj, secs["a_tp_solve_dense"] = _timed(
+                lambda: tp_solve_dense(a_mid, b_mid, mesh))
+            rel_gj = _rel(x_gj, torch.linalg.solve(a_mid, b_mid))
+        finally:
+            dist.destroy_process_group()
+    print(f"  parallel (a) one NCCL rank, mesh (1,1,1): full-order sweep "
+          f"rel_vs_x_full={rel_full:.3e}; sweep I={serve_points} "
+          f"rel={rel_sweep:.3e}; spectral rel={rel_spec:.3e}; projection "
+          f"err={err_proj:.3e}; tp_solve_dense N={sys_.n} "
+          f"rel_vs_linalg_solve={rel_gj:.3e}; launches "
+          f"{json.dumps(counts_a)}", flush=True)
+    check(rel_full < 1e-12, f"(a) sharded full-order sweep: {rel_full}")
+    check(rel_sweep < 1e-12 and rel_spec < 1e-12,
+          f"(a) sharded sweeps: {rel_sweep}, {rel_spec}")
+    check(err_proj < 1e-11, f"(a) tp projection: {err_proj} >= 1e-11")
+    check(rel_gj < 1e-12, f"(a) tp_solve_dense: {rel_gj} >= 1e-12")
+    for k in ("panel_factor", "mm_words", "gather_rows"):
+        check(counts_a[k] > 0, f"(a) {k} was not launched")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out, secs_b, counts_b = run_spmd(
+        _parallel_rank, 2, "gloo", "cuda", sys_.n, rm.q.cpu(),
+        sys_.num_points, serve_points, p2d, timeout=BUDGET["parallel"])
+    secs["b_two_ranks_whole"] = time.perf_counter() - t0
+    secs.update({f"b_{k}": v for k, v in secs_b.items()})
+    rel_full_b = _rel(out["full"].to(dev), x_full)
+    print(f"  parallel (b) two gloo ranks on {smi}: sp=2 full-order sweep "
+          f"rel_vs_x_full={rel_full_b:.3e}; sp=2 sweep I={serve_points} "
+          f"rel={out['sweep_rel']:.3e}; tp=2 projection "
+          f"err={out['project_err']:.3e}; tp=2 tp_solve_dense "
+          f"rel={out['dense_rel']:.3e}; tp=2 spike N={p2d ** 2} "
+          + "; ".join(f"f={f:.4e} relres={rr:.2e} iterations={it} "
+                      f"rel_vs_banded_direct={d:.2e} s={t:.3f}"
+                      for f, rr, it, d, t in out["spike"])
+          + f"; tp=2 tp_solve N=4096 relres={out['krylov'][0]:.2e} "
+          f"rel_vs_linalg_solve={out['krylov'][1]:.2e}; dp=2 "
+          f"multi_geometry_mor G={len(GAMMA_SCALES)} worst_rel_vs_serial="
+          f"{out['multi_geometry_rel']:.3e}; launches per rank "
+          f"{json.dumps(counts_b)}", flush=True)
+    check(rel_full_b < 1e-10, f"(b) sp=2 full-order sweep: {rel_full_b}")
+    for rank, c in enumerate(counts_b):
+        for k in ("panel_factor", "mm_words", "gather_rows"):
+            check(c[k] > 0, f"(b) rank {rank}: {k} was not launched")
+    for k, v in secs.items():
+        print(f"  parallel step '{k}': {v:.3f} s ({smi})", flush=True)
+    total = {k: counts_a[k] + sum(c[k] for c in counts_b) for k in counts_a}
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1671,7 +1974,6 @@ def main() -> int:
         k4, k4_serve_s = reduced_lu_phase(dev, sys_, gsm_full)
     with phase("serve"):
         k4_checkpoint = serve_phase(dev, sys_, rm, gsm_full, x_full, t_full)
-    del rm, x_full
     with phase("matfree"):
         k4_matfree = matfree_phase(dev)
     with phase("general"):
@@ -1680,6 +1982,9 @@ def main() -> int:
         counts.update(krylov_phase(dev))
     with phase("complex"):
         k5_complex = complex_phase(dev, sys_, k4_serve_s)
+    with phase("parallel"):
+        for kname, n in parallel_phase(dev, sys_, rm, x_full, smi).items():
+            counts[kname] += n
     counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree + k4_checkpoint
     counts["banded_matvec_padded"] += k5_complex
 

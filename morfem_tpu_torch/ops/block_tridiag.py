@@ -95,7 +95,14 @@ class BlockTridiagFactors(NamedTuple):
 
 
 def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
-    """Block-Thomas factorization in f32 (one dependent step per block)."""
+    """Block-Thomas factorization in f32 (one dependent step per block).
+
+    An exactly singular Schur complement does not raise: its inverse comes
+    back non-finite (`torch.linalg.inv_ex`, as the reference's
+    `jnp.linalg.inv`), so the refinement's residual turns NaN and the
+    callers escalate to the shifted solve. `inv_ex` also skips the host
+    check of each block's `info` that `inv` makes on the card.
+    """
     f32 = torch.float32
     l32, d32, u32 = l.to(f32), d.to(f32), u.to(f32)
     nb, b, _ = d32.shape
@@ -103,7 +110,7 @@ def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     h = torch.empty_like(d32)
     for i in range(nb):
         s = d32[i] if i == 0 else d32[i] - l32[i] @ (g[i - 1] @ u32[i - 1])
-        g[i] = torch.linalg.inv(s)
+        g[i] = torch.linalg.inv_ex(s)[0]
         h[i] = g[i] @ u32[i]
     return BlockTridiagFactors(g=g, h=h, l=l32, n=n)
 

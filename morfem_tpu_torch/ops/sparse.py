@@ -35,13 +35,17 @@ def to_csr(a, dtype=torch.float64, device="cuda") -> torch.Tensor:
     dev = resolve_device(device)
     csr = a.tocsr() if sp.issparse(a) else sp.csr_matrix(np.asarray(a))
     csr.sum_duplicates()
+
+    def dense(x, t_dtype):
+        # copied into a fresh tensor: an empty NumPy array has stride 0,
+        # which PyTorch's CSR check may refuse as not contiguous
+        return torch.empty(x.shape, dtype=t_dtype).copy_(torch.as_tensor(x))
+
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message="Sparse CSR tensor support")
         return torch.sparse_csr_tensor(
-            torch.as_tensor(csr.indptr, dtype=torch.int64),
-            torch.as_tensor(csr.indices, dtype=torch.int64),
-            torch.as_tensor(csr.data, dtype=dtype),
-            size=csr.shape, check_invariants=True,
+            dense(csr.indptr, torch.int64), dense(csr.indices, torch.int64),
+            dense(csr.data, dtype), size=csr.shape, check_invariants=True,
         ).to(dev)
 
 
@@ -158,25 +162,28 @@ def solve_point_iterative(
     shifted preconditioner; `GeneralSparseOperator`), ``"bicgstab"`` /
     ``"gmres"`` (Jacobi-preconditioned block Krylov, for definite or
     diagonally dominant systems; a banded or block-sparse operator runs
-    its f32 kernel inside), ``"auto"`` (direct for banded storage, general
-    for a `GeneralSparseOperator`, else bicgstab). ``"spike"`` (the
-    distributed banded solve) belongs to the multi-GPU slice.
+    its f32 kernel inside), ``"spike"`` (the banded direct solve
+    DISTRIBUTED over a mesh, `parallel/tp_banded.py`; operators carrying a
+    ``spike_mesh``, `SpikeBandedOperator`, only), ``"auto"`` (spike when
+    the operator carries a mesh, direct for banded storage, general for a
+    `GeneralSparseOperator`, else bicgstab).
 
     With ``return_residual`` also returns the achieved relative residual
     per column.
     """
     if method == "auto":
-        if hasattr(op, "bands_w"):
+        if hasattr(op, "spike_mesh"):
+            method = "spike"
+        elif hasattr(op, "bands_w"):
             method = "direct"
         elif hasattr(op, "band"):
             method = "general"
         else:
             method = "bicgstab"
     if method == "spike":
-        raise NotImplementedError(
-            "method='spike' (the distributed banded solve) is ported in "
-            "slice 5 of the PyTorch port"
-        )
+        x, relres, _ = op.spike_solve(
+            c, rhs, tol=tol, refine_iterations=min(30, maxiter))
+        return (x, relres) if return_residual else x
     if method == "general":
         from morfem_tpu_torch.ops.block_tridiag import general_sparse_solve
 

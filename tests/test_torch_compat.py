@@ -266,7 +266,13 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
     mods = ["apps.studies", "utils.data_convert", "utils.checkpoint",
             "ops.spectral_solve", "ops.blocked_inverse", "ops.precision",
             "examples.serve", "examples.waveguide_sweep",
-            "examples.basis_size_study", "examples.complex_serve"]
+            "examples.basis_size_study", "examples.complex_serve",
+            "parallel", "parallel.mesh", "parallel.sharded",
+            "parallel.tp_solve", "parallel.tp_banded", "parallel.tp_dense",
+            "parallel.launch", "examples.multi_geometry",
+            "examples.tp_dense_solve", "examples.large_n_sweep",
+            "examples.banded_direct_greedy", "examples.general_sparse_mor",
+            "examples.random_matrix_experiment"]
     code = (
         "import sys\n"
         + "".join(f"import morfem_tpu_torch.{m}\n" for m in mods)

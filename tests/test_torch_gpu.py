@@ -798,3 +798,51 @@ def test_studies_helpers_default_to_the_card(cuda):
     assert np.abs(x - y).max() <= 1e-12 * np.abs(y).max()
     pts = equally_distributed_points(np.linspace(3e9, 5e9, 11), 4)
     assert pts.device.type == "cuda"
+
+
+def test_two_gloo_ranks_on_the_card_match_one_rank(cuda):
+    """Two spawned ranks share the card over gloo (CUDA tensors staged
+    through host memory): the tp=2 projection and the sp=2 full-order
+    sweep (K1–K3 on each rank) agree with the single-device functions,
+    and a singular Schur block factors to non-finite values on the card."""
+    from morfem_tpu_torch import AffineSystem, MorfemConfig, solve_sweep
+    from morfem_tpu_torch.ops.block_tridiag import block_tridiag_factor
+    from morfem_tpu_torch.ops.kernels import launch_counts
+    from morfem_tpu_torch.parallel import (
+        sharded_full_order_sweep, tp_operator_images_and_project,
+    )
+    from morfem_tpu_torch.parallel.launch import (
+        MESH, Call, call_on_mesh, run_spmd,
+    )
+    from morfem_tpu_torch.utils.synthetic import random_affine_system
+
+    arrays = random_affine_system(0, n=400, m=2, num_points=10, device="cpu")
+    q = torch.linalg.qr(torch.from_numpy(
+        np.random.default_rng(1).standard_normal((400, 12))))[0]
+    cfg = MorfemConfig()
+    sys_r = Call(AffineSystem.create, arrays, {"device": "cuda"})
+    out_tp = run_spmd(call_on_mesh, 2, "gloo", "cuda", (1, 1, 2), [
+        Call(tp_operator_images_and_project,
+             (Call(AffineSystem.operators, (sys_r,)),
+              Call(getattr, (sys_r, "b")), Call(torch.Tensor.cuda, (q,)),
+              MESH))])
+    out_sp = run_spmd(call_on_mesh, 2, "gloo", "cuda", (1, 2, 1), [
+        Call(sharded_full_order_sweep, (sys_r, MESH, cfg)),
+        Call(launch_counts)])
+    sys_ = AffineSystem.create(*arrays, device=cuda)
+    u, r, b_r = (x.to(cuda) for x in out_tp[0])
+    qc = q.to(cuda)
+    for p, a in enumerate(sys_.operators()):
+        assert (u[p] - a @ qc).abs().max() <= 1e-12 * (a @ qc).abs().max()
+        rp = qc.T @ a @ qc
+        assert (r[p] - rp).abs().max() <= 1e-11 * rp.abs().max()
+    x = out_sp[0].to(cuda)
+    ref = solve_sweep(sys_, cfg)
+    assert torch.linalg.norm(x - ref) <= 1e-10 * torch.linalg.norm(ref)
+    assert all(out_sp[1][k] > 0 for k in ("panel_factor", "mm_words",
+                                          "gather_rows"))
+    d = torch.eye(128, device=cuda).repeat(2, 1, 1)
+    d[0, 127, 127] = 0.0
+    fac = block_tridiag_factor(torch.zeros_like(d), d, torch.zeros_like(d),
+                               256)
+    assert not bool(torch.isfinite(fac.g[0]).all())
