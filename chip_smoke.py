@@ -73,11 +73,21 @@ Phases, each printing one progress line with its seconds and numbers:
                at N=4096, and dp=2 multi_geometry_mor on four waveguides
                against a serial loop. Two ranks share one card's SMs and
                memory: the phase's times show correctness and overhead,
-               not a speed-up.
+               not a speed-up;
+ 12. bench   — the port's benchmark as a user runs it, `python -m
+               morfem_tpu_torch.bench` in a subprocess (the waveguide
+               headline: full-order sweep at solve_chunk=20 over the
+               dispatch-amortized device time of one spectral sweep, CUDA
+               graphs and events; then its extras): one JSON line, exit code
+               0, no error or skipped extra, the repo's accuracy bars on its
+               numbers, K1-K4 launched, and three of its full-order
+               solutions against f64 torch.linalg.solve.
 
 Each path's kernels are counted from zero over that path's run alone and
-must have launched (the parallel phase's ranks report theirs to this
-process, and K1-K3's totals include them); the kernels phase (3) holds K4-K6 against their plain
+must have launched (the parallel phase's ranks and the bench's process
+report theirs to this process, and the totals include them; the bench is
+the first caller of K1 at G=20 and of K1's one-CTA kernel outside
+escalation); the kernels phase (3) holds K4-K6 against their plain
 versions too, at the shapes these paths give them: K4's warp variant at
 the build and serving grids and its block variant at K=84, bit for bit;
 K6 packed on the fly and through the Krylov operator's own packing; K3 at
@@ -109,7 +119,7 @@ import warnings
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
           "reduced_lu": 300, "serve": 900, "matfree": 600, "general": 600,
-          "krylov": 600, "complex": 900, "parallel": 600}
+          "krylov": 600, "complex": 900, "parallel": 600, "bench": 540}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -212,15 +222,6 @@ def bound(nbytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=30, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def ptxas_summary(log: str):
     """Per kernel: registers, shared memory and spill bytes from ptxas -v."""
     rows, current = [], None
@@ -275,13 +276,17 @@ def kernel_phase(dev):
 
     # K1: the block-pivot diagonal blocks [8, 384, 384] without C̃ (the
     # path's call; the cluster kernel), the same with C̃ (cluster kernel),
-    # and the full-pivot panel [8, 128, 3456] with C̃ (one-CTA kernel).
+    # and the full-pivot panel [8, 128, 3456] with C̃ (one-CTA kernel);
+    # then the bench's batch of 20 (solve_chunk=20): the block-pivot blocks
+    # (160 CTAs, more than one wave) and its full-pivot factor's panel.
     # The kernels round every update as the plain version does, so they
     # agree bit for bit in practice; the gate is 1e-5 of the largest entry.
     # Pivots and availability exactly.
     for (g, p, npl), want_ct, principal in (((8, 384, 384), False, True),
                                             ((8, 384, 384), True, False),
-                                            ((8, 128, 3456), True, False)):
+                                            ((8, 128, 3456), True, False),
+                                            ((20, 384, 384), False, False),
+                                            ((20, 128, 3456), True, False)):
         pt = torch.randn((g, p, npl), generator=gen, device=dev)
         av = torch.ones((g, npl), device=dev)
         out_k = panel_factor(pt, av, want_ct=want_ct)
@@ -330,6 +335,7 @@ def kernel_phase(dev):
         ((8, 3072, 384, 3072), True, -1, False, True),
         ((8, 384, 384, 3072), False, 1, False, False),
         ((8, 3456, 128, 3328), True, 1, True, False),
+        ((20, 3072, 384, 3072), True, -1, False, False),  # the bench's G
     )
     for (g, m, k, n), with_t, sign, transposed, principal in cases:
         if transposed:
@@ -445,7 +451,8 @@ def k3_inputs(dev, gen):
     :214) of [8, 3456, 3456] blocks; the full-pivot LU (escalation only)
     gathers 128 pivot rows of a trailing block and the final permutation.
     The last view starts one column off a 16-byte boundary, so K3 copies
-    it with 4-byte loads and stores instead of float4 ones."""
+    it with 4-byte loads and stores instead of float4 ones. The bench's
+    sweep (solve_chunk=20) gathers the A12 rows of 20 blocks at a time."""
     import torch
 
     def rand(*shape):
@@ -457,6 +464,8 @@ def k3_inputs(dev, gen):
 
     g = 8
     yield "A12 rows [8,384,3072]", rand(g, 384, 3072), rows(g, 384, 384), True
+    yield ("A12 rows [20,384,3072] (the bench's G)", rand(20, 384, 3072),
+           rows(20, 384, 384), False)
     yield ("full-pivot rows [8,3456,3328]", rand(g, 3456, 3328),
            rows(g, 3456, 128), False)
     yield ("final permutation [8,3456,3456]", rand(g, 3456, 3456),
@@ -475,8 +484,10 @@ def k3_inputs(dev, gen):
 
 def _kernels_k4(dev, gen, keep):
     """K4 at the waveguide's reduced size (K=40, M=2) for the I=100 build
-    grid and the 10,000-point serving grid (warp variant), and at K=84,
-    I=100 (block variant)."""
+    grid and the 10,000-point serving grid (warp variant), at the bench's
+    reduced size (K=32, M=2: its I=10,000 re-sweep and I=4,000 three-term
+    sweep, the warp kernel's KP=32 instance), and at K=84, I=100 (block
+    variant)."""
     import torch
 
     from morfem_tpu_torch.ops.kernels import (
@@ -486,6 +497,7 @@ def _kernels_k4(dev, gen, keep):
 
     m = 2
     for k, i_pts, principal in ((40, 100, False), (40, 10000, True),
+                                (32, 10000, False), (32, 4000, False),
                                 (84, 100, False)):
         rs = [torch.randn((k, k), generator=gen, device=dev,
                           dtype=torch.float64) for _ in range(3)]
@@ -1938,6 +1950,86 @@ def parallel_phase(dev, sys_, rm, x_full, smi, serve_points=10000,
     return total
 
 
+BENCH_BUDGET_S = 420  # the bench's own budget, inside the phase's
+
+
+def bench_phase(dev):
+    """The port's benchmark as a user runs it: ``python -m
+    morfem_tpu_torch.bench`` in a subprocess with its budget set to fit
+    this phase. Its one JSON line must carry no error and no skipped extra
+    and meet the repo's bars; three of its full-order solutions are held
+    against f64 `torch.linalg.solve`. Returns the bench's launch counts."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from morfem_tpu_torch.apps.waveguide import (
+        load_waveguide_data, waveguide_system,
+    )
+    from morfem_tpu_torch.ops.assembly import assemble_at
+
+    torch.cuda.empty_cache()  # the bench's process needs the card's memory
+    with tempfile.TemporaryDirectory() as tmp:
+        points = os.path.join(tmp, "points.npz")
+        proc = subprocess.run(
+            [sys.executable, "-m", "morfem_tpu_torch.bench",
+             "--check-points", points],
+            capture_output=True, text=True, timeout=BUDGET["bench"] - 30,
+            cwd=Path(__file__).resolve().parent,
+            env=dict(os.environ, BENCH_BUDGET_S=str(BENCH_BUDGET_S)),
+        )
+        for line in proc.stderr.splitlines():
+            print(f"  [bench] {line}", flush=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+        check(len(lines) == 1,
+              f"the bench printed {len(lines)} lines on stdout, not one")
+        print(f"  bench {lines[0]}", flush=True)
+        check(proc.returncode == 0, f"the bench exited {proc.returncode}")
+        res = json.loads(lines[0])
+        ex = res["extras"]
+        check("error" not in res, f"bench error: {res.get('error')}")
+        # error records hold their message (solution_rel_error is a number)
+        bad = [k for k, v in {**res, **ex}.items()
+               if k.endswith("_skipped")
+               or (k.endswith("_error") and isinstance(v, str))]
+        check(not bad, f"bench extras failed or skipped: {bad}")
+        check(res["metric"] == "reduced_sweep_speedup_vs_full_order"
+              and res["value"] > 0, f"bench headline {res['value']}")
+        check(ex["timer"] == "cuda_graph_events", f"bench timer {ex['timer']}")
+        check(ex["device"] == torch.cuda.get_device_name(0),
+              f"bench device {ex['device']}")
+        bars = (("gsm_error_max", 1e-8), ("k4_vs_lu_rel", 1e-9),
+                ("three_term_k4_vs_lu_rel", 1e-9),
+                ("full_spectral_vs_lu_rel", 1e-9),
+                ("banded_rel_error_vs_oracle", 1e-7),
+                ("gj_refined_solve_residual", 1e-9))
+        for key, bar in bars:
+            check(ex[key] < bar, f"bench {key} = {ex[key]} >= {bar}")
+        check(ex["escalations"] == 0,
+              f"bench: {ex['escalations']} chunks escalated")
+        launches = ex["launches"]
+        for kname in ("panel_factor", "mm_words", "gather_rows",
+                      "gauss_jordan_sweep_solve"):
+            check(launches[kname] > 0, f"the bench did not launch {kname}")
+
+        # the bench's full-order solutions at 3 points against f64 solves
+        with np.load(points) as z:
+            ts, xs = z["ts"], z["x"]
+    data = load_waveguide_data(n_fallback=ex["n_dof"])
+    sys_ = waveguide_system(ts, data, device=dev)
+    for t, x in zip(sys_.domain, torch.as_tensor(xs, device=dev)):
+        a, b = assemble_at(sys_, t, symmetrize=True)
+        xr = torch.linalg.solve(a, b)
+        rel = float(torch.linalg.norm(x - xr) / torch.linalg.norm(xr))
+        print(f"  bench spot f={float(t):.6e}: rel_err_vs_torch_solve="
+              f"{rel:.3e}", flush=True)
+        check(rel < 1e-9, f"bench spot check at f={float(t)}: {rel} >= 1e-9")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1946,6 +2038,7 @@ def main() -> int:
         return 1
     try:
         import morfem_tpu_torch  # noqa: F401
+        from morfem_tpu_torch.bench import nvidia_smi_line
         from morfem_tpu_torch.ops.kernels import _lib
     except ImportError as e:
         print(f"chip_smoke: the morfem_tpu_torch package is missing: {e}",
@@ -1985,7 +2078,13 @@ def main() -> int:
     with phase("parallel"):
         for kname, n in parallel_phase(dev, sys_, rm, x_full, smi).items():
             counts[kname] += n
-    counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree + k4_checkpoint
+    with phase("bench"):
+        bench_launches = bench_phase(dev)
+    for kname in ("panel_factor", "mm_words", "gather_rows"):
+        counts[kname] += bench_launches[kname]
+    counts["gauss_jordan_sweep_solve"] = (
+        k4 + k4_matfree + k4_checkpoint
+        + bench_launches["gauss_jordan_sweep_solve"])
     counts["banded_matvec_padded"] += k5_complex
 
     kernels = []

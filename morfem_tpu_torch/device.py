@@ -19,3 +19,9 @@ def resolve_device(device="cuda") -> torch.device:
             "available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for the work queued on `dev` (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
