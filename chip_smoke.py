@@ -20,12 +20,24 @@ Phases, each printing one progress line with its seconds and numbers:
                refinement iterations per chunk), f64 spot checks of
                full-order solutions, and each kernel's launch count over that
                run;
-  5. reduced_lu — the same waveguide through morfem() with the reduced LU
+  5. entry   — the flagship forward step (`morfem_tpu_torch/entry.py`, the
+               counterpart of `__graft_entry__.entry`): seed solves,
+               thin SVD, projection, reduced sweep, GSM, captured as CUDA
+               graphs (the SVD eager between two graphs: it synchronises).
+               (a) entry()'s example (N=256): replay against the eager
+               step; (b) the slice's waveguide with 6 and 16 seeds against
+               the library route (equally_distributed_basis, project,
+               sweep, GSM), and its distance to the full-order GSM; (c)
+               factorization="panel" with 6 seeds: the seed solves through
+               K1's one-CTA kernel with C̃, K2 and K3 inside the first graph,
+               against (b). Eager, replay and capture times, segments,
+               unitarity of the GSM;
+  6. reduced_lu — the same waveguide through morfem() with the reduced LU
                sweep on K4 (sweep_method="lu", use_pallas_reduced_sweep=True):
                its GSM against the full-order GSM, then the serving re-sweep
                of the trimmed model on a 10,000-point grid against the
                batched library LU, with points/s;
-  6. serve   — the rest of the single-GPU surface on the same waveguide:
+  7. serve   — the rest of the single-GPU surface on the same waveguide:
                the trimmed MOR model saved and loaded (the default t_b must
                warn) and re-swept on 10,000 points through K4, bit for bit
                as the in-memory model; the full-order spectral oracle
@@ -37,18 +49,18 @@ Phases, each printing one progress line with its seconds and numbers:
                points; the basis-size study (3..29 seeds) on the slice
                phase's full-order sweep against an independent recompute
                at two sizes;
-  7. matfree — the 2-D waveguide pencil at N=34,225 (SciPy sparse, RCM-banded
+  8. matfree — the 2-D waveguide pencil at N=34,225 (SciPy sparse, RCM-banded
                matrix-free route) through morfem(), default sweep and then the
                K4 LU sweep, against banded direct oracle solves at 7 points;
-  8. general — the same pencil at N=9,409 forced onto the general-sparsity
+  9. general — the same pencil at N=9,409 forced onto the general-sparsity
                route (band_max_half=128: truncated band + exact-operator
                GMRES), same oracle check; then the same pencil plus weak
                scattered couplings, so that the preconditioner drops mass
                outside the band, against SciPy's spsolve at 3 points;
-  9. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
+ 10. krylov  — greedy_basis_matfree(method="bicgstab") on a banded operator
                (K5) and on a block-sparse operator (K6) at N=34,225, checked
                against scipy.sparse.linalg.spsolve at 3 points;
- 10. complex — (a) the waveguide with a lossy Γ·T slot through morfem()'s
+ 11. complex — (a) the waveguide with a lossy Γ·T slot through morfem()'s
                native complex128 dense route, against the full-order
                complex sweep at all points (no K1-K3 launch), then the
                complex model's serving re-sweep on the 10,000-point grid
@@ -59,7 +71,7 @@ Phases, each printing one progress line with its seconds and numbers:
                physics as real operators with a complex t_a2, each against
                complex spsolve at 3 points; (d) the BiCGStab greedy on the
                embedding of a complex banded pencil (K5);
- 11. parallel — the multi-GPU layer on torch.distributed: a singular
+ 12. parallel — the multi-GPU layer on torch.distributed: a singular
                Schur block factors to non-finite values (no exception);
                (a) one NCCL rank in this process, mesh (1,1,1): the sharded
                full-order sweep (K1-K3) against the slice phase's sweep,
@@ -74,7 +86,7 @@ Phases, each printing one progress line with its seconds and numbers:
                against a serial loop. Two ranks share one card's SMs and
                memory: the phase's times show correctness and overhead,
                not a speed-up;
- 12. bench   — the port's benchmark as a user runs it, `python -m
+ 13. bench   — the port's benchmark as a user runs it, `python -m
                morfem_tpu_torch.bench` in a subprocess (the waveguide
                headline: full-order sweep at solve_chunk=20 over the
                dispatch-amortized device time of one spectral sweep, CUDA
@@ -85,11 +97,14 @@ Phases, each printing one progress line with its seconds and numbers:
 
 Each path's kernels are counted from zero over that path's run alone and
 must have launched (the parallel phase's ranks and the bench's process
-report theirs to this process, and the totals include them; the bench is
-the first caller of K1 at G=20 and of K1's one-CTA kernel outside
-escalation); the kernels phase (3) holds K4-K6 against their plain
-versions too, at the shapes these paths give them: K4's warp variant at
-the build and serving grids and its block variant at K=84, bit for bit;
+report theirs to this process, and the totals include them; the entry
+phase's panel step calls K1's one-CTA kernel at G=6 inside a CUDA graph,
+the bench at G=20, both outside escalation, and the entry phase counts
+its kernels in the eager step and in `capture`, whose graph records as
+many as its warm-up launches); the kernels phase (3) holds K4-K6
+against their plain versions too, at the shapes these paths give them:
+K4's warp variant at the build and serving grids and its block variant
+at K=84, bit for bit;
 K6 packed on the fly and through the Krylov operator's own packing; K3 at
 each of the panel LU's shapes and views (`k3_inputs`) with int32 and int64
 indices; K5 at the real and the embedded complex pencil's bands, with
@@ -118,8 +133,9 @@ import warnings
 
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
-          "reduced_lu": 300, "serve": 900, "matfree": 600, "general": 600,
-          "krylov": 600, "complex": 900, "parallel": 600, "bench": 540}
+          "entry": 300, "reduced_lu": 300, "serve": 900, "matfree": 600,
+          "general": 600, "krylov": 600, "complex": 900, "parallel": 600,
+          "bench": 540}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -278,7 +294,8 @@ def kernel_phase(dev):
     # path's call; the cluster kernel), the same with C̃ (cluster kernel),
     # and the full-pivot panel [8, 128, 3456] with C̃ (one-CTA kernel);
     # then the bench's batch of 20 (solve_chunk=20): the block-pivot blocks
-    # (160 CTAs, more than one wave) and its full-pivot factor's panel.
+    # (160 CTAs, more than one wave) and its full-pivot factor's panel;
+    # then the entry phase's 6 seeds under factorization="panel".
     # The kernels round every update as the plain version does, so they
     # agree bit for bit in practice; the gate is 1e-5 of the largest entry.
     # Pivots and availability exactly.
@@ -286,7 +303,8 @@ def kernel_phase(dev):
                                             ((8, 384, 384), True, False),
                                             ((8, 128, 3456), True, False),
                                             ((20, 384, 384), False, False),
-                                            ((20, 128, 3456), True, False)):
+                                            ((20, 128, 3456), True, False),
+                                            ((6, 128, 3456), True, False)):
         pt = torch.randn((g, p, npl), generator=gen, device=dev)
         av = torch.ones((g, npl), device=dev)
         out_k = panel_factor(pt, av, want_ct=want_ct)
@@ -336,6 +354,7 @@ def kernel_phase(dev):
         ((8, 384, 384, 3072), False, 1, False, False),
         ((8, 3456, 128, 3328), True, 1, True, False),
         ((20, 3072, 384, 3072), True, -1, False, False),  # the bench's G
+        ((6, 3456, 128, 3328), True, 1, True, False),  # the entry's seeds
     )
     for (g, m, k, n), with_t, sign, transposed, principal in cases:
         if transposed:
@@ -470,6 +489,12 @@ def k3_inputs(dev, gen):
            rows(g, 3456, 128), False)
     yield ("final permutation [8,3456,3456]", rand(g, 3456, 3456),
            rows(g, 3456, 3456), False)
+    # the entry phase's 6 seeds under factorization="panel": 128 pivot
+    # rows of the trailing view ``rest[:, :, 128:]``, the final permutation
+    yield ("full-pivot rows rest[:, :, 128:] of [6,3456,3456]",
+           rand(6, 3456, 3456)[:, :, 128:], rows(6, 3456, 128), False)
+    yield ("final permutation [6,3456,3456]", rand(6, 3456, 3456),
+           rows(6, 3456, 3456), False)
     yield ("diagonal block [8,384,384]", rand(g, 384, 384),
            rows(g, 384, 384), False)
     big = rand(g, 3456, 3456)
@@ -851,6 +876,170 @@ def slice_phase(dev, n_expected=3411, points=100):
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
     return counts, sys_, rm, gsm_full, x_full, t_full
+
+
+def _library_gsm(sys_, count, cfg):
+    """The port's library route at the step's seeds: equally distributed
+    basis, projection, batched-LU sweep, GSM (complex128 [I, M, M])."""
+    from morfem_tpu_torch import equally_distributed_basis, project, sweep
+    from morfem_tpu_torch.apps.waveguide import generalized_scattering_matrix
+
+    rm = project(sys_, equally_distributed_basis(sys_, cfg, count=count))
+    x = sweep(rm, cfg)
+    _, cb = rm.coefficients(rm.domain)
+    return generalized_scattering_matrix(rm.domain, x,
+                                         cb[:, None, None] * rm.b_r)
+
+
+def _step_run(label, step, args, smi, eager_reps=5, replay_reps=20):
+    """Eager step, capture, replay: check the replay against the eager
+    step, time all three, report segments and unitarity. Returns (GSM of
+    the replay as complex128, launches during the eager step, launches
+    during `capture`)."""
+    import torch
+
+    from morfem_tpu_torch.device import median_event_ms, median_wall_s
+    from morfem_tpu_torch.entry import capture
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    eager = step(*args)
+    torch.cuda.synchronize()
+    eager_counts = launch_counts()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    captured = capture(step, args)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+    capture_counts = launch_counts()
+    out = captured()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(o).all()) for o in out),
+          f"entry {label}: non-finite output of the replay")
+    diff = max(float((o - e).abs().max()) for o, e in zip(out, eager))
+    same = all(torch.equal(o, e) for o, e in zip(out, eager))
+    check(diff <= 1e-12, f"entry {label}: replay differs from the eager step "
+          f"by {diff}")
+    eager_s = median_wall_s(lambda: step(*args), eager_reps,
+                            args[0].device)
+    replay_ms = median_event_ms(captured, replay_reps)
+    seg_ms = []
+    for seg in captured.segments:
+        if seg.graph is not None:
+            seg_ms.append(median_event_ms(seg.graph.replay, replay_reps))
+        else:
+            seg_ms.append(median_event_ms(lambda: seg.fn(*seg.args),
+                                           replay_reps))
+    gsm = torch.complex(out[1], out[2])
+    m = gsm.shape[-1]
+    eye = torch.eye(m, dtype=gsm.dtype, device=gsm.device)
+    unitarity = float(torch.linalg.norm(gsm.mH @ gsm - eye,
+                                        dim=(-2, -1)).max())
+    graphs = sum(seg.graph is not None for seg in captured.segments)
+    segs = "; ".join(
+        f"{seg.label} ({'graph' if seg.graph is not None else 'eager'}) "
+        f"{ms:.4f} ms" for seg, ms in zip(captured.segments, seg_ms))
+    kern = {k: v for k, v in eager_counts.items() if v}
+    cap_kern = {k: v for k, v in capture_counts.items() if v}
+    print(f"  entry {label}: shapes {[list(o.shape) for o in out]} "
+          f"replay_vs_eager max_abs={diff:.3e} bit_for_bit={same} "
+          f"eager_step_s={eager_s:.4f} (wall, median of {eager_reps}) "
+          f"replay_ms={replay_ms:.4f} (CUDA events, median of "
+          f"{replay_reps}) capture_s={t_capture:.3f} segments="
+          f"{len(captured.segments)} ({graphs} graphs; split by the thin "
+          f"SVD: torch.linalg.svd checks its info on the host) "
+          f"max_point_fro|S^H S - I|={unitarity:.3e} ({smi})", flush=True)
+    print(f"  entry {label} segments: {segs}", flush=True)
+    print(f"  entry {label} launches: eager step {json.dumps(kern)}, "
+          f"capture() (side-stream warm-up + graph record) "
+          f"{json.dumps(cap_kern)}", flush=True)
+    return gsm, eager_counts, capture_counts
+
+
+def _seed_solve_breakdown(a0, a1, a2, b, domain, idx, smi):
+    """Where the default seed-solve graph's time goes: one factorization of
+    the seeds (one cuSOLVER call per seed, `lu_factor_each`), and one
+    refinement pass's apply (`lu_solve` on the batch) and f64 residual
+    product, each timed alone (CUDA events, median of 5)."""
+    import torch
+
+    from morfem_tpu_torch.apps.waveguide import b_coefficient
+    from morfem_tpu_torch.device import median_event_ms
+    from morfem_tpu_torch.ops.solve import lu_factor_each
+
+    ts = domain[idx]
+    a = a0 + (ts**2)[:, None, None] * a2 + ts[:, None, None] * a1
+    a = (a + a.transpose(-1, -2)) * 0.5
+    a32 = a.to(torch.float32)
+    rhs = b_coefficient(ts)[:, None, None] * b
+    lu, piv = lu_factor_each(a32)
+    r32 = rhs.to(torch.float32)
+    factor_ms = median_event_ms(lambda: lu_factor_each(a32), 5)
+    apply_ms = median_event_ms(lambda: torch.linalg.lu_solve(lu, piv, r32),
+                                5)
+    resid_ms = median_event_ms(lambda: rhs - a @ rhs, 5)
+    print(f"  entry seed solves, {idx.shape[0]} seeds at N={a0.shape[0]}: "
+          f"factor (lu_factor_ex per seed) {factor_ms:.4f} ms; one "
+          f"refinement pass: apply (lu_solve) {apply_ms:.4f} ms + f64 "
+          f"residual {resid_ms:.4f} ms ({smi})", flush=True)
+
+
+def entry_phase(dev, sys_, gsm_full, smi):
+    """The flagship step (`morfem_tpu_torch/entry.py`) captured as CUDA
+    graphs: (a) entry()'s example, (b) the slice's waveguide at 6 and 16
+    seeds against the library route, (c) factorization="panel" at 6
+    seeds. Returns the kernels' launches over (c)'s eager step and
+    capture."""
+    import numpy as np
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig
+    from morfem_tpu_torch.device import median_wall_s
+    from morfem_tpu_torch.entry import entry, flagship_step
+
+    fn, args = entry(dev)
+    _step_run("(a) entry() example N=256", fn, args, smi)
+
+    a0, a1, a2 = sys_.operators()
+    i_pts = sys_.num_points
+    base = (a0, a1, a2, sys_.b, sys_.domain)
+    gsm6 = None
+    for seeds in (6, 16):
+        idx = torch.as_tensor(np.linspace(0, i_pts - 1, seeds).astype(int),
+                              device=dev)
+        label = f"(b) N={sys_.n} I={i_pts} {seeds} seeds"
+        gsm, _, _ = _step_run(label, flagship_step(), base + (idx,), smi)
+        lib = _library_gsm(sys_, seeds, MorfemConfig())
+        lib_s = median_wall_s(
+            lambda: _library_gsm(sys_, seeds, MorfemConfig()), 3, dev)
+        d_lib = float((gsm - lib).abs().max())
+        d_full = float((gsm - gsm_full).abs().max())
+        print(f"  entry {label}: max|S_step-S_library|={d_lib:.3e} "
+              f"max|S_step-S_full|={d_full:.3e} (reported, not gated: "
+              f"equally spaced seeds are not the greedy) library_route_s="
+              f"{lib_s:.4f} (host refinement loops, wall, median of 3)",
+              flush=True)
+        check(d_lib < 1e-9, f"entry {label}: step vs library route {d_lib}")
+        if seeds == 6:
+            gsm6, idx6 = gsm, idx
+        _seed_solve_breakdown(*base, idx, smi)
+
+    label = f"(c) N={sys_.n} I={i_pts} 6 seeds factorization=panel"
+    gsm_p, eager_counts, capture_counts = _step_run(
+        label, flagship_step({"factorization": "panel"}), base + (idx6,),
+        smi)
+    d_p = float((gsm_p - gsm6).abs().max())
+    print(f"  entry {label}: max|S_panel-S_default|={d_p:.3e}", flush=True)
+    check(d_p < 1e-9, f"entry {label}: panel vs default step {d_p}")
+    for name in ("panel_factor", "mm_words", "gather_rows"):
+        check(eager_counts[name] > 0,
+              f"entry {label}: {name} not launched by the step")
+        # the warm-up launches what the eager step launches, and the graph
+        # records as many: the kernels are inside the captured program
+        check(capture_counts[name] == 2 * eager_counts[name],
+              f"entry {label}: {name} counted {capture_counts[name]} in "
+              f"capture(), expected 2 x {eager_counts[name]}")
+    return {k: eager_counts[k] + capture_counts[k] for k in eager_counts}
 
 
 def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
@@ -2063,6 +2252,9 @@ def main() -> int:
         rec = kernel_phase(dev)
     with phase("slice"):
         counts, sys_, rm, gsm_full, x_full, t_full = slice_phase(dev)
+    with phase("entry"):
+        for kname, n in entry_phase(dev, sys_, gsm_full, smi).items():
+            counts[kname] += n
     with phase("reduced_lu"):
         k4, k4_serve_s = reduced_lu_phase(dev, sys_, gsm_full)
     with phase("serve"):

@@ -51,7 +51,11 @@ def b_coefficient(t, kte: float = KTE_DEFAULT):
 
 def generalized_scattering_matrix(frequency, e, b) -> torch.Tensor:
     """GSM [..., M, M] complex128 from solved fields e and impulse vectors
-    b in the same space (reduced solutions pair with the reduced b_r)."""
+    b in the same space (reduced solutions pair with the reduced b_r).
+
+    The M×M inverses are `inv_ex`: a singular GIM gives non-finite
+    values, as the reference's `jnp.linalg.inv` does, and nothing
+    synchronises the host."""
     e = torch.as_tensor(e)
     b = torch.as_tensor(b, device=e.device)
     f = torch.as_tensor(frequency, device=e.device).to(torch.float64)
@@ -59,8 +63,8 @@ def generalized_scattering_matrix(frequency, e, b) -> torch.Tensor:
     gim = 1j * (2 * PI * EPSILON_0) * f[..., None, None] * etb
     m = gim.shape[-1]
     eye = torch.eye(m, dtype=torch.complex128, device=e.device)
-    gam = torch.linalg.inv(gim)
-    return 2 * torch.linalg.inv(eye + gam) - eye
+    gam = torch.linalg.inv_ex(gim)[0]
+    return 2 * torch.linalg.inv_ex(eye + gam)[0] - eye
 
 
 class WaveguideData(NamedTuple):

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -54,7 +55,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from morfem_tpu_torch.device import sync
+from morfem_tpu_torch.device import (
+    capture_graph,
+    median_event_ms,
+    median_wall_s,
+    sync,
+)
 
 BASELINE_TARGET_SPEEDUP = 50.0  # the reference's target speed-up
 CHAIN_SHORT, CHAIN_LONG = 256, 1024
@@ -174,14 +180,8 @@ def wall_median(fn, grids, reps: int, dev) -> float:
     """Median wall seconds of fn(grid), each call synchronised; the grid
     changes between calls. One warm-up call first."""
     fn(grids[0])
-    sync(dev)
-    times = []
-    for i in range(reps):
-        t0 = time.perf_counter()
-        fn(grids[(1 + i) % len(grids)])
-        sync(dev)
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+    grid = itertools.cycle(list(grids[1:]) + list(grids[:1]))
+    return median_wall_s(lambda: fn(next(grid)), reps, dev)
 
 
 def _rel(x, ref) -> float:
@@ -216,20 +216,15 @@ def chained_sweeps(sm, g: torch.Tensor, k: int):
 
 def chain_seconds(sm, grids, k: int, dev, reps: int = 5) -> float:
     """Median seconds of one k-sweep chain. On the card: one CUDA graph,
-    replayed after copying a perturbed grid into its static input, timed
-    with CUDA events. On the CPU: eager calls under perf_counter."""
+    replayed after copying a perturbed grid into its static input (the
+    copy is timed with it), timed with CUDA events. On the CPU: eager
+    calls under perf_counter."""
     if dev.type != "cuda":
         return wall_median(lambda g: chained_sweeps(sm, g, k), grids, reps,
                            dev)
     static = grids[0].clone()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):  # warm-up before capture
-        chained_sweeps(sm, static, k)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        _, x_last = chained_sweeps(sm, static, k)
+    graph, (_, x_last) = capture_graph(
+        dev, lambda g: chained_sweeps(sm, g, k), static)
     # the replay computes what the eager chain computes on a new grid
     static.copy_(grids[1])
     graph.replay()
@@ -238,18 +233,15 @@ def chain_seconds(sm, grids, k: int, dev, reps: int = 5) -> float:
     if not rel <= 1e-12:
         raise RuntimeError(f"the CUDA graph of the {k}-sweep chain differs "
                            f"from the eager chain by {rel:.3e}")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    times = []
-    for i in range(reps):
-        static.copy_(grids[(1 + i) % len(grids)])
-        start.record()
+    grid = itertools.cycle(list(grids[1:]) + list(grids[:1]))
+
+    def replay():
+        static.copy_(next(grid))
         graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+
+    ms = median_event_ms(replay, reps)
     del graph
-    return statistics.median(times)
+    return ms / 1e3
 
 
 def solution_rel_error(q, x_r, x_full) -> float:

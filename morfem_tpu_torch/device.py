@@ -3,10 +3,14 @@
 Entry points take ``device="cuda"`` by default: the port is written for an
 NVIDIA card, and the CPU runs only when the caller asks for it (the tests
 do). A CUDA request without a visible card raises instead of quietly
-running somewhere else.
+running somewhere else. The CUDA-graph capture and the timers here are
+the ones the bench, the flagship step and `chip_smoke.py` share.
 """
 
 from __future__ import annotations
+
+import statistics
+import time
 
 import torch
 
@@ -25,3 +29,51 @@ def sync(dev: torch.device) -> None:
     """Wait for the work queued on `dev` (a no-op on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def capture_graph(dev: torch.device, fn, *args):
+    """Record ``fn(*args)`` as one CUDA graph on `dev` → (graph, outputs).
+
+    One warm-up call runs first on a side stream, so that lazy set-up
+    (cuBLAS and cuSOLVER handles, the allocator's first blocks) stays out
+    of the graph. The outputs are the graph's static tensors: they hold
+    the warm-up's values until the first replay overwrites them. A
+    failure to capture raises.
+    """
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
+def median_event_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` on the current CUDA stream, each of
+    `reps` calls timed alone between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def median_wall_s(fn, reps: int, dev: torch.device) -> float:
+    """Median wall seconds of ``fn()`` over `reps` calls, each one
+    synchronised before and after."""
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)

@@ -19,7 +19,11 @@ import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.orthonormalize import column_mask
-from morfem_tpu_torch.ops.solve import factor_dtype_like
+from morfem_tpu_torch.ops.solve import (
+    factor_dtype_like,
+    lu_factor_each,
+    refine_masked,
+)
 from morfem_tpu_torch.system import AffineSystem, Coefficient, _coefficients
 
 
@@ -103,18 +107,32 @@ def assemble_reduced(
 
 
 def solve_reduced_batch(
-    a: torch.Tensor, rhs: torch.Tensor, config: MorfemConfig = DEFAULT_CONFIG
+    a: torch.Tensor, rhs: torch.Tensor, config: MorfemConfig = DEFAULT_CONFIG,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Batched LU of [..., K, K] systems + refinement with a batch-global
-    stopping criterion (the reference's)."""
+    stopping criterion (the reference's).
+
+    ``masked=True`` factors each system alone (`ops/solve.py::
+    lu_factor_each`) and runs the refinement as the masked fixed trip
+    `ops/solve.py::refine_masked`, same rule: nothing synchronises the
+    host, so a CUDA graph can capture the call.
+    """
     work = torch.promote_types(a.dtype, rhs.dtype)
     fd = factor_dtype_like(work, config.factor_dtype_name)
-    lu, piv = torch.linalg.lu_factor(a.to(fd))
+    factor = lu_factor_each if masked else torch.linalg.lu_factor
+    lu, piv = factor(a.to(fd))
     x = torch.linalg.lu_solve(lu, piv, rhs.to(fd)).to(work)
     if (
         config.refine_iterations > 0
         and torch.finfo(work).bits > torch.finfo(fd).bits
     ):
+        if masked:
+            return refine_masked(
+                a, rhs, x,
+                lambda r: torch.linalg.lu_solve(lu, piv, r.to(fd)).to(work),
+                config.refine_iterations, per_lane=False,
+            )
         a_w, rhs_w = a.to(work), rhs.to(work)
         tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(rhs_w))
         r = rhs_w - a_w @ x

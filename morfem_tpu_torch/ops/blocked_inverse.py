@@ -50,7 +50,10 @@ def gj_panel_factor(pb: torch.Tensor, avail: torch.Tensor, sub: int):
     cp = torch.zeros_like(pb)
     pivpanel = torch.zeros((bsz, panel), dtype=torch.long, device=pb.device)
     batch = torch.arange(bsz, device=pb.device)
-    neg_inf = torch.tensor(-float("inf"), dtype=pb.dtype, device=pb.device)
+    # device scalars made by fills, not copied from the host, so that a
+    # CUDA graph can capture the loop
+    neg_inf = torch.full((), -float("inf"), dtype=pb.dtype, device=pb.device)
+    used = torch.zeros((), dtype=torch.bool, device=pb.device)
     for s0 in range(0, panel, sub):
         s1 = s0 + sub
         blk = pb[:, :, s0:s1].clone()
@@ -68,7 +71,7 @@ def gj_panel_factor(pb: torch.Tensor, avail: torch.Tensor, sub: int):
             blk[:, :, i + 1:] += c[:, :, None] * blk[batch, p, None, i + 1:]
             cs[:, :, :i] += c[:, :, None] * cs[batch, p, None, :i]
             cs[:, :, i] = c
-            avail[batch, p] = False
+            avail[batch, p] = used
             pivlocal[:, i] = p
         rows_pb = pb[batch[:, None], pivlocal]  # [B, sub, panel]
         rows_cp = cp[batch[:, None], pivlocal]

@@ -23,20 +23,20 @@ def cholesky_qr_refine(q: torch.Tensor, mask=None) -> torch.Tensor:
     """One CholeskyQR pass: G = QᴴQ, L = chol(G), Q ← Q·L⁻ᴴ.
 
     Padded (zero) columns get a unit diagonal in G and stay zero. Returns
-    q unchanged when G is numerically singular. (The reference needs this
-    pass because the TPU's large-N f64 SVD is only ~3e-7 orthonormal; it
-    is kept so both packages return the same basis class.)
+    q unchanged when G is numerically singular, selected on the device, so
+    nothing synchronises the host. (The reference needs this pass because
+    the TPU's large-N f64 SVD is only ~3e-7 orthonormal; it is kept so
+    both packages return the same basis class.)
     """
     k = q.shape[1]
     g = q.conj().T @ q
     if mask is not None:
         g = g + torch.diag(1.0 - mask)
     l, info = torch.linalg.cholesky_ex(g)
-    if int(info) != 0 or not bool(torch.isfinite(l).all()):
-        return q
     eye = torch.eye(k, dtype=q.dtype, device=q.device)
     linv = torch.linalg.solve_triangular(l, eye, upper=False)
-    return q @ linv.conj().T
+    ok = (info == 0) & torch.isfinite(l).all()
+    return torch.where(ok, q @ linv.conj().T, q)
 
 
 def orthonormalize_svd(q: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.kernels import gather_rows, mm_words, panel_factor
+from morfem_tpu_torch.ops.solve import refine_masked
 
 PANEL = 128
 _TRAILS = ("f32x6", "f32x3")
@@ -125,8 +126,8 @@ def _equilibrate(a: torch.Tensor, np_: int):
         padded = torch.zeros((g, np_, np_), dtype=torch.float32,
                              device=a.device)
         padded[:, :n, :n] = a32
-        tail = torch.arange(n, np_, device=a.device)
-        padded[:, tail, tail] = 1.0
+        # a fill, not an indexed store of a host scalar: capturable
+        padded.diagonal(dim1=1, dim2=2)[:, n:].fill_(1.0)
         a32 = padded
     return a32, dinv
 
@@ -284,13 +285,26 @@ def solve_batch_panel(
     a: torch.Tensor,  # [G, N, N] working dtype (real)
     b: torch.Tensor,  # [G, N, M] working dtype
     config: MorfemConfig = DEFAULT_CONFIG,
+    masked: bool = False,
 ) -> torch.Tensor:
-    """Batched direct solve: full-pivot panel LU + adaptive refinement."""
+    """Batched direct solve: full-pivot panel LU + adaptive refinement.
+
+    The refinement stops on the norm of the whole batch's residual.
+    ``masked=True`` refines each system to its own stopping rule, as the
+    reference's `vmap` over solves of one system does, through the masked
+    fixed trip `ops/solve.py::refine_masked`: nothing synchronises the
+    host, so a CUDA graph can capture the call.
+    """
     f = panel_lu_factor(a, panel=config.panel_width)
     work = torch.promote_types(a.dtype, b.dtype)
     x = panel_lu_apply(f, b).to(work)
     if torch.finfo(work).bits <= 32 or config.refine_iterations <= 0:
         return x
+    if masked:
+        return refine_masked(
+            a, b, x, lambda r: panel_lu_apply(f, r).to(work),
+            config.refine_iterations, per_lane=True,
+        )
     a_w, b_w = a.to(work), b.to(work)
     tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(b_w))
     x, _ = _refine(

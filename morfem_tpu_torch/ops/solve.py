@@ -15,6 +15,12 @@ device go to the blocked panel LU (`ops/panel_lu.py`) under
 ``factorization="gj"`` solves real operators through the blocked
 Gauss–Jordan inverse (`gj_solve_refined`, `ops/blocked_inverse.py`), point
 by point.
+
+The refinement is a host loop that reads one norm per iteration. Beside
+it, ``masked=True`` runs the masked fixed trip
+`refine_masked`, which synchronises nothing and so can be captured in a
+CUDA graph (the flagship step, `morfem_tpu_torch/entry.py`); it always
+runs ``refine_iterations`` passes, so the host loop stays the default.
 """
 
 from __future__ import annotations
@@ -43,25 +49,52 @@ def factor_dtype_like(dtype: torch.dtype, factor_dtype_name: str):
     return dtype if _bits(dtype) < _bits(fd) else fd
 
 
+def lu_factor_each(a: torch.Tensor):
+    """`lu_factor_ex` of each matrix of a batch [..., N, N] alone.
+
+    Returns (lu, piv) as `torch.linalg.lu_factor` does, with no info check
+    and no host synchronisation: PyTorch factors a batch of one with
+    cuSOLVER on the current stream, which a CUDA graph captures, where a
+    batched call may go to MAGMA, which it does not (PyTorch 2.11 on an
+    H100 sends [6, 3411, 3411] and [100, 32, 32] there).
+    """
+    n = a.shape[-1]
+    facs = [torch.linalg.lu_factor_ex(m)[:2] for m in a.reshape(-1, n, n)]
+    lu = torch.stack([f[0] for f in facs]).reshape(a.shape)
+    piv = torch.stack([f[1] for f in facs]).reshape(a.shape[:-1])
+    return lu, piv
+
+
 def lu_solve_refined(
     a: torch.Tensor,
     b: torch.Tensor,
     *,
     factor_dtype=torch.float32,
     refine_iterations: int = 2,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Solve ``a @ x = b`` by LU in `factor_dtype` + refinement in a's dtype
-    (residuals are working-precision matmuls with ``a``)."""
+    (residuals are working-precision matmuls with ``a``).
+
+    ``masked=True`` takes a's leading axes as independent systems (the
+    reference's `vmap` of this function) and synchronises nothing: the
+    factor is `lu_factor_each`'s, and each system refines to its own
+    stopping rule through `refine_masked`.
+    """
     work = torch.promote_types(a.dtype, b.dtype)
     if work.is_complex and not factor_dtype.is_complex:
         factor_dtype = _COMPLEX_OF[factor_dtype]
-    lu, piv = torch.linalg.lu_factor(a.to(factor_dtype))
+    factor = lu_factor_each if masked else torch.linalg.lu_factor
+    lu, piv = factor(a.to(factor_dtype))
 
     def apply_factor(rhs):
         return torch.linalg.lu_solve(lu, piv, rhs.to(factor_dtype)).to(work)
 
     x = apply_factor(b)
     if refine_iterations > 0 and _bits(work) > _bits(factor_dtype):
+        if masked:
+            return refine_masked(a, b, x, apply_factor, refine_iterations,
+                                 per_lane=True)
         x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
     return x
 
@@ -88,6 +121,46 @@ def _refine_adaptive(a, b, x0, apply_factor, refine_iterations: int):
     return x
 
 
+def refine_masked(a, b, x0, apply_factor, refine_iterations: int,
+                  per_lane: bool):
+    """`_refine_adaptive` as a masked fixed trip: no host synchronisation.
+
+    All `refine_iterations` iterations run; each one's update is kept
+    only where the reference's `lax.while_loop` condition still holds
+    (``r_norm > tol``, ``r_norm < 0.95·r_prev``), decided on the device
+    with `torch.where`; the trip count is the loop's cap. Once the
+    condition fails the state is frozen, so x is the while-loop's x bit
+    for bit. ``per_lane``: each
+    [N, M] system of a batch [..., N, M] stops on its own norms and its
+    own tol (the reference's rule under `vmap`); else one norm over the
+    whole batch.
+    """
+    work = torch.promote_types(a.dtype, b.dtype)
+    a_w = a.to(work)
+    b_w = b.to(work)
+
+    def norm(v):
+        if per_lane:
+            return torch.linalg.norm(v, dim=(-2, -1))
+        return torch.linalg.norm(v)
+
+    tol = 10 * torch.finfo(work).eps * norm(b_w)
+    x = x0
+    r = b_w - a_w @ x
+    r_norm = norm(r)
+    r_prev = torch.full_like(r_norm, float("inf"))
+    for _ in range(refine_iterations):
+        go = (r_norm > tol) & (r_norm < 0.95 * r_prev)
+        x_new = x + apply_factor(r)
+        r_new = b_w - a_w @ x_new
+        go_v = go[..., None, None] if per_lane else go
+        x = torch.where(go_v, x_new, x)
+        r = torch.where(go_v, r_new, r)
+        r_prev = torch.where(go, r_norm, r_prev)
+        r_norm = torch.where(go, norm(r_new), r_norm)
+    return x
+
+
 def gj_solve_refined(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -95,6 +168,7 @@ def gj_solve_refined(
     refine_iterations: int = 2,
     panel: int = 256,
     sub: int = 8,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Solve ``a @ x = b`` through the blocked Gauss–Jordan f32 inverse
     + refinement in the working dtype.
@@ -103,7 +177,9 @@ def gj_solve_refined(
     inverse as a stacked [Re(b) | Im(b)] solve. Every apply of the inverse
     is an f32-true product (a coarser one would enter the refinement's
     iteration matrix as ‖E‖·cond(A) and diverge it): a plain FP32 `@` with
-    TF32 off (`NUMERICS.md` row 33).
+    TF32 off (`NUMERICS.md` row 33). ``masked=True``: a's leading axes are
+    independent systems, each refined to its own stopping rule through
+    `refine_masked` (as in `lu_solve_refined`).
     """
     from morfem_tpu_torch.ops.blocked_inverse import gj_inverse_f32
 
@@ -127,6 +203,9 @@ def gj_solve_refined(
 
     x = apply_factor(b)
     if refine_iterations > 0 and (_bits(work) > 32 or complex_rhs):
+        if masked:
+            return refine_masked(a, b, x, apply_factor, refine_iterations,
+                                 per_lane=True)
         x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
     return x
 
@@ -192,25 +271,35 @@ def solve_dense(
     a: torch.Tensor,
     b: torch.Tensor,
     config: MorfemConfig = DEFAULT_CONFIG,
+    masked: bool = False,
 ) -> torch.Tensor:
     """Direct dense solve honouring `config.factorization`.
 
     Only an explicit ``"panel"`` sends a single solve through the panel
     LU; ``"gj"`` takes the Gauss–Jordan inverse; ``"auto"`` keeps single
     solves on `torch.linalg` LU.
+
+    ``masked=True`` takes a batch [G, N, N] of independent systems, the
+    reference's `vmap(solve_dense)`: each refines to its own stopping rule
+    as a masked fixed trip (`refine_masked`) and nothing synchronises the
+    host, so a CUDA graph can capture the call. Under ``"panel"`` the
+    panel LU (K1–K3) factors the whole batch at once.
     """
     if config.factorization == "panel" and not a.dtype.is_complex:
         from morfem_tpu_torch.ops.panel_lu import solve_batch_panel
 
+        if masked:
+            return solve_batch_panel(a, b, config, masked=True)
         return solve_batch_panel(a[None], b[None], config)[0]
     if use_gj_factorization(a.dtype, a.shape[-1], config):
         return gj_solve_refined(
-            a, b, refine_iterations=config.refine_iterations)
+            a, b, refine_iterations=config.refine_iterations, masked=masked)
     return lu_solve_refined(
         a,
         b,
         factor_dtype=factor_dtype_like(a.dtype, config.factor_dtype_name),
         refine_iterations=config.refine_iterations,
+        masked=masked,
     )
 
 

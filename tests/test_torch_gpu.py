@@ -883,3 +883,40 @@ def test_bench_chain_runs_as_a_cuda_graph(cuda):
     _, x_cpu = bench.chained_sweeps(models["cpu"], grids[1].cpu(), 5)
     assert (torch.linalg.norm(x_gpu.cpu() - x_cpu)
             <= 1e-12 * torch.linalg.norm(x_cpu))
+
+
+@pytest.mark.parametrize("cfg_kw", [None, {"factorization": "panel",
+                                           "panel_width": 128},
+                                    {"factorization": "gj"}])
+def test_flagship_step_captures_and_replays(cuda, cfg_kw):
+    """entry()'s example captured as CUDA graphs (the thin SVD eager
+    between two): the replay equals the eager step, and equals it again
+    after new inputs are copied in; under factorization="panel" (panels
+    of 128, so that N=256 takes two, and K2 runs) the seed solves launch
+    K1–K3 in the warm-up and record as many in the graph; "gj" captures
+    the Gauss–Jordan inverse's column loop."""
+    from morfem_tpu_torch.entry import capture, entry, flagship_step
+
+    _, args = entry(cuda)
+    step = flagship_step(cfg_kw)
+    eager = step(*args)
+    reset_launch_counts()
+    captured = capture(step, args)
+    counts = launch_counts()
+    out = captured()
+    torch.cuda.synchronize()
+    assert [(s.label, s.graph is not None) for s in captured.segments] == [
+        ("seed solves", True), ("thin SVD", False),
+        ("projection, reduced sweep and GSM", True)]
+    for o, e in zip(out, eager):
+        assert bool(torch.isfinite(o).all())
+        assert float((o - e).abs().max()) <= 1e-12
+    scaled = (args[0] * 1.001,) + tuple(args[1:])
+    out = captured(*scaled)
+    for o, e in zip(out, step(*scaled)):
+        assert float((o - e).abs().max()) <= 1e-12
+    kernels = ("panel_factor", "mm_words", "gather_rows")
+    if cfg_kw is None or cfg_kw["factorization"] == "gj":
+        assert all(counts[k] == 0 for k in kernels)
+    else:
+        assert all(counts[k] > 0 and counts[k] % 2 == 0 for k in kernels)
