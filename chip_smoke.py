@@ -13,7 +13,9 @@ Phases, each printing one progress line with its seconds and numbers:
                against its plain PyTorch version on the card, at the panel
                LU's shapes on the waveguide, with kernel, plain, library and
                bound times (K1's library call: torch.linalg.lu_factor on the
-               block-pivot blocks; K2's: baddbmm / bmm);
+               block-pivot blocks; K2's: baddbmm / bmm); each K1 row names
+               its variant (cluster of 8 or 16 CTAs, lanes in shared or
+               device memory);
   4. slice   — the waveguide (N=3411, M=2, I=100, bundled data): the MOR GSM
                (greedy + spectral sweep) against the full-order GSM (panel-LU
                sweep through K1-K3, with its block-pivot escalations and
@@ -29,9 +31,13 @@ Phases, each printing one progress line with its seconds and numbers:
                the library route (equally_distributed_basis, project,
                sweep, GSM), and its distance to the full-order GSM; (c)
                factorization="panel" with 6 seeds: the seed solves through
-               K1's one-CTA kernel with C̃, K2 and K3 inside the first graph,
-               against (b). Eager, replay and capture times, segments,
-               unitarity of the GSM;
+               K1 (with C̃, on 8-CTA clusters), K2 and K3 inside the first
+               graph, against (b). Eager, replay and capture times,
+               segments, unitarity of the GSM;
+  5b. panel  — morfem(factorization="panel") on the same waveguide: every
+               greedy snapshot solve through the full-pivot panel LU (K1
+               with C̃ at G=1, K2, K3), its GSM against the full-order GSM
+               (< 1e-8), with its K1 launches and wall time;
   6. reduced_lu — the same waveguide through morfem() with the reduced LU
                sweep on K4 (sweep_method="lu", use_pallas_reduced_sweep=True):
                its GSM against the full-order GSM, then the serving re-sweep
@@ -98,13 +104,13 @@ Phases, each printing one progress line with its seconds and numbers:
 Each path's kernels are counted from zero over that path's run alone and
 must have launched (the parallel phase's ranks and the bench's process
 report theirs to this process, and the totals include them; the entry
-phase's panel step calls K1's one-CTA kernel at G=6 inside a CUDA graph,
-the bench at G=20, both outside escalation, and the entry phase counts
-its kernels in the eager step and in `capture`, whose graph records as
-many as its warm-up launches); the kernels phase (3) holds K4-K6
-against their plain versions too, at the shapes these paths give them:
-K4's warp variant at the build and serving grids and its block variant
-at K=84, bit for bit;
+phase's panel step calls K1 with C̃ at G=6 inside a CUDA graph, the
+panel phase at G=1 and the bench at G=20, all outside escalation, and
+the entry phase counts its kernels in the eager step and in `capture`,
+whose graph records as many as its warm-up launches); the kernels phase
+(3) holds K4-K6 against their plain versions too, at the shapes these
+paths give them: K4's warp variant at the build and serving grids and
+its block variant at K=84, bit for bit;
 K6 packed on the fly and through the Krylov operator's own packing; K3 at
 each of the panel LU's shapes and views (`k3_inputs`) with int32 and int64
 indices; K5 at the real and the embedded complex pencil's bands, with
@@ -133,9 +139,9 @@ import warnings
 
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
-          "entry": 300, "reduced_lu": 300, "serve": 900, "matfree": 600,
-          "general": 600, "krylov": 600, "complex": 900, "parallel": 600,
-          "bench": 540}
+          "entry": 300, "panel": 300, "reduced_lu": 300, "serve": 900,
+          "matfree": 600, "general": 600, "krylov": 600, "complex": 900,
+          "parallel": 600, "bench": 540}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -279,7 +285,9 @@ def kernel_phase(dev):
         panel_factor, panel_factor_plain,
     )
     from morfem_tpu_torch.ops.kernels.fused_mm import mm_words_split_plain
-    from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
+    from morfem_tpu_torch.ops.kernels.panel_factor import (
+        max_active_clusters, panel_factor_plan, placeable_on,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}  # kernel -> [(principal, record)]
@@ -291,12 +299,15 @@ def kernel_phase(dev):
         results.setdefault(name, []).append((principal, r))
 
     # K1: the block-pivot diagonal blocks [8, 384, 384] without C̃ (the
-    # path's call; the cluster kernel), the same with C̃ (cluster kernel),
-    # and the full-pivot panel [8, 128, 3456] with C̃ (one-CTA kernel);
-    # then the bench's batch of 20 (solve_chunk=20): the block-pivot blocks
-    # (160 CTAs, more than one wave) and its full-pivot factor's panel;
-    # then the entry phase's 6 seeds under factorization="panel".
-    # The kernels round every update as the plain version does, so they
+    # path's call), the same with C̃, and the full-pivot panel [8, 128, 3456]
+    # with C̃ (escalation's chunk of 8); then the bench's batch of 20
+    # (solve_chunk=20): the block-pivot blocks (160 CTAs, more than one
+    # wave) and its full-pivot factor's panel; the entry phase's 6 and 16
+    # seeds under factorization="panel", and one solve (G=1, morfem()'s
+    # greedy under "panel"); then the widest full-pivot panels: 384 over
+    # Npl=1536 (16 CTAs) and 128 over Npl=8192 (dense_cutoff: the lanes in
+    # device memory). Each row names the variant that ran it.
+    # The kernel rounds every update as the plain version does, so they
     # agree bit for bit in practice; the gate is 1e-5 of the largest entry.
     # Pivots and availability exactly.
     for (g, p, npl), want_ct, principal in (((8, 384, 384), False, True),
@@ -304,7 +315,11 @@ def kernel_phase(dev):
                                             ((8, 128, 3456), True, False),
                                             ((20, 384, 384), False, False),
                                             ((20, 128, 3456), True, False),
-                                            ((6, 128, 3456), True, False)):
+                                            ((6, 128, 3456), True, False),
+                                            ((1, 128, 3456), True, False),
+                                            ((16, 128, 3456), True, False),
+                                            ((1, 384, 1536), True, False),
+                                            ((1, 128, 8192), True, False)):
         pt = torch.randn((g, p, npl), generator=gen, device=dev)
         av = torch.ones((g, npl), device=dev)
         out_k = panel_factor(pt, av, want_ct=want_ct)
@@ -316,7 +331,9 @@ def kernel_phase(dev):
         err = max(float((out_k[i] - out_p[i]).abs().max()) for i in outs)
         scale = max(float(out_p[i].abs().max()) for i in outs)
         check(err <= 1e-5 * scale, f"K1 error {err} at {what}")
-        kind = "cluster" if uses_cluster_kernel(p, npl, want_ct) else "one-CTA"
+        plan = panel_factor_plan(p, npl, want_ct, placeable_on(dev))
+        at_once = max_active_clusters(dev, p, npl, want_ct, plan.cluster,
+                                      plan.in_smem)
         ms = cuda_ms(lambda: panel_factor(pt, av, want_ct=want_ct), 5)
         plain_ms = cuda_ms(lambda: panel_factor_plain(pt, av, want_ct), 2)
         lib_ms = None
@@ -333,13 +350,17 @@ def kernel_phase(dev):
         nbytes = 4 * ((2 + want_ct) * g * p * npl + 2 * g * npl + g * p)
         b_ms, b_by = bound(nbytes, flops)
         lib_txt = "None" if lib_ms is None else f"{lib_ms:.4f} (lu_factor)"
-        print(f"  K1 panel_factor {what} ({kind} kernel): max_abs_err={err:.3e} "
+        print(f"  K1 panel_factor {what} ({plan.variant}: {plan.cluster} CTAs "
+              f"of {plan.threads} threads a panel, {plan.smem} B shared "
+              f"memory a CTA, {at_once} such clusters at once): "
+              f"max_abs_err={err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_txt} bound_ms={b_ms:.5f} ({b_by})",
               flush=True)
         keep("panel_factor", principal, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib_ms, shape=list(pt.shape))
+             library_ms=lib_ms, shape=list(pt.shape),
+             variant=f"{plan.variant}{' with C~' if want_ct else ''}")
 
     # K2: trailing updates of the block-pivot factor (S = A22 - L21·U12),
     # the U12 = L11⁻¹·A12 product, and the full-pivot trailing update with
@@ -444,7 +465,7 @@ def kernel_phase(dev):
         principal = next(r for p, r in rows if p)
         worst = max(r["max_abs_err"] for _, r in rows)
         rec[name] = dict(principal, max_abs_err=worst)
-        if "variant" in principal:  # K4: which variant ran each shape
+        if "variant" in principal:  # K1, K4: which variant ran each shape
             rec[name]["variants"] = [[r["shape"], r["variant"]]
                                      for _, r in rows]
     return rec
@@ -467,8 +488,9 @@ def k3_inputs(dev, gen):
     The block-pivot LU (the waveguide's path) gathers the diagonal block
     (contiguous, `ops/panel_lu.py:205`), the factored L21 rows
     (``out[:, lo:hi, :lo]``, :211) and the A12 rows (``rest[:, :P, P:]``,
-    :214) of [8, 3456, 3456] blocks; the full-pivot LU (escalation only)
-    gathers 128 pivot rows of a trailing block and the final permutation.
+    :214) of [8, 3456, 3456] blocks; the full-pivot LU (escalation, and
+    every solve under factorization="panel") gathers 128 pivot rows of a
+    trailing block and the final permutation.
     The last view starts one column off a 16-byte boundary, so K3 copies
     it with 4-byte loads and stores instead of float4 ones. The bench's
     sweep (solve_chunk=20) gathers the A12 rows of 20 blocks at a time."""
@@ -1040,6 +1062,46 @@ def entry_phase(dev, sys_, gsm_full, smi):
               f"entry {label}: {name} counted {capture_counts[name]} in "
               f"capture(), expected 2 x {eager_counts[name]}")
     return {k: eager_counts[k] + capture_counts[k] for k in eager_counts}
+
+
+def panel_phase(dev, sys_, gsm_full, smi):
+    """morfem(factorization="panel") on the slice's waveguide: every greedy
+    snapshot solve (G=1) through the panel LU's full-pivot factor (K1 with
+    C̃ at [1, 128, 3456], K2, K3), the GSM against the full-order GSM.
+    Returns the kernels' launches over that run."""
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig, PhaseTimer, morfem
+    from morfem_tpu_torch.apps.waveguide import generalized_scattering_matrix
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cfg = MorfemConfig(factorization="panel", error_threshold=1e-10)
+    timer = PhaseTimer(device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    x, q, *_, b_r = morfem(
+        sys_.domain, sys_.a0, sys_.a1, sys_.a2, sys_.b, t_b=sys_.t_b,
+        config=cfg, timer=timer, device=dev)
+    torch.cuda.synchronize()
+    t_panel = time.perf_counter() - t0
+    counts = launch_counts()
+    _, cb = sys_.coefficients(sys_.domain)
+    gsm = generalized_scattering_matrix(sys_.domain, x,
+                                        cb[:, None, None] * b_r)
+    check(bool(torch.isfinite(gsm).all()), "panel morfem(): non-finite GSM")
+    err = float((gsm - gsm_full).abs().max())
+    print(f"  panel morfem(factorization='panel') N={sys_.n}: Nr={q.shape[1]} "
+          f"total_s={t_panel:.3f} (wall, one call) greedy_s="
+          f"{timer.times['projection base']:.3f} K1_launches="
+          f"{counts['panel_factor']} K2={counts['mm_words']} "
+          f"K3={counts['gather_rows']} max|S_mor-S_full|={err:.3e} ({smi})",
+          flush=True)
+    check(err < 1e-8, f"panel morfem(): max|S_mor - S_full| = {err} >= 1e-8")
+    for name in ("panel_factor", "mm_words", "gather_rows"):
+        check(counts[name] > 0,
+              f"panel morfem(): kernel {name} was not launched")
+    return counts
 
 
 def reduced_lu_phase(dev, sys_, gsm_full, serve_points=10000):
@@ -2254,6 +2316,9 @@ def main() -> int:
         counts, sys_, rm, gsm_full, x_full, t_full = slice_phase(dev)
     with phase("entry"):
         for kname, n in entry_phase(dev, sys_, gsm_full, smi).items():
+            counts[kname] += n
+    with phase("panel"):
+        for kname, n in panel_phase(dev, sys_, gsm_full, smi).items():
             counts[kname] += n
     with phase("reduced_lu"):
         k4, k4_serve_s = reduced_lu_phase(dev, sys_, gsm_full)

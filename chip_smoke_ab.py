@@ -1,28 +1,81 @@
-"""Run chip_smoke.py's krylov and parallel phases in several checkouts, one
-after another, on one card, so that their times compare within one machine.
+"""Run some of chip_smoke.py's phases in several checkouts, one after
+another, on one card, so that their times compare within one machine.
 
-    python3 chip_smoke_ab.py [--skip-entry] DIR [DIR ...]
+    python3 chip_smoke_ab.py [--phases P,P,...] DIR [DIR ...]
 
 Each DIR is the root of a checkout (e.g. the parent commit unpacked with
 `git archive`, then this tree, this tree, the parent). For each, in the
 order given, a fresh process imports that checkout's `chip_smoke.py` and
-`morfem_tpu_torch`, builds the kernels and runs its device-side phases:
-`slice` (which the others need), then `entry` where the checkout has it
-and `--skip-entry` is not given (as `chip_smoke.py` runs it before the
-later phases), then `krylov` and `parallel`, each with its usual checks.
-The phases' lines go to stdout, each run opened by a line naming its
-index and DIR. Exits non-zero if any run failed. Needs CUDA.
+`morfem_tpu_torch`, builds the kernels and runs the phases named, in
+this order, each with its usual checks:
+
+  kernels     the checkout's own kernels phase (its shapes, all kernels);
+  k1          K1 (`panel_factor`) timed at the full-pivot shapes with C̃
+              ([G, 128, 3456] for G = 1, 6, 8, 16, 20; [1, 384, 1536];
+              [1, 128, 8192]) and at the block-pivot [8, 384, 384] and
+              [20, 384, 384] without, through the API that every tree of
+              the port has, each call's pivots held to the plain version;
+  slice       the waveguide end to end (the later phases need it; it runs
+              whenever one of them is named);
+  entry       the flagship step, where the checkout has it;
+  panel       morfem(factorization="panel") on the waveguide;
+  reduced_lu, serve, matfree, krylov, parallel.
+
+A phase that the checkout's `chip_smoke.py` lacks (`panel` before it was
+added) runs from the `chip_smoke.py` beside this script, on that
+checkout's package. The default is `slice,entry,krylov,parallel`. The
+phases' lines go to stdout, each run opened by a line naming its index
+and DIR. Exits non-zero if any run failed. Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import os
 import subprocess
 import sys
 
+PHASES = ("kernels", "k1", "slice", "entry", "panel", "reduced_lu", "serve",
+          "matfree", "krylov", "parallel")
+DEFAULT = "slice,entry,krylov,parallel"
+K1_SHAPES = (((1, 128, 3456), True), ((6, 128, 3456), True),
+             ((8, 128, 3456), True), ((16, 128, 3456), True),
+             ((20, 128, 3456), True), ((1, 384, 1536), True),
+             ((1, 128, 8192), True), ((8, 384, 384), False),
+             ((20, 384, 384), False))
 
-def run_one(root: str, skip_entry: bool) -> None:
+
+def _own_chip_smoke():
+    """The chip_smoke.py beside this script, under another module name."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(here, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k1_times(cs, dev, smi):
+    """K1 per call (CUDA events, mean of 5 after a warm-up) at K1_SHAPES."""
+    import torch
+
+    from morfem_tpu_torch.ops.kernels import panel_factor, panel_factor_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for (g, p, npl), want_ct in K1_SHAPES:
+        pt = torch.randn((g, p, npl), generator=gen, device=dev)
+        av = torch.ones((g, npl), device=dev)
+        got = panel_factor(pt, av, want_ct=want_ct)
+        ref = panel_factor_plain(pt, av, want_ct=want_ct)
+        cs.check(torch.equal(got[2], ref[2]),
+                 f"K1 pivots differ at {[g, p, npl]}")
+        ms = cs.cuda_ms(lambda: panel_factor(pt, av, want_ct=want_ct), 5)
+        print(f"  k1 [{g},{p},{npl}] want_ct={want_ct} kernel_ms={ms:.4f} "
+              f"({smi})", flush=True)
+
+
+def run_one(root: str, phases) -> None:
     """The phases of the checkout at `root`, in this process."""
     sys.path.insert(0, root)
     import torch
@@ -31,39 +84,72 @@ def run_one(root: str, skip_entry: bool) -> None:
     from morfem_tpu_torch.bench import nvidia_smi_line
     from morfem_tpu_torch.ops.kernels import _lib
 
+    def runner(name):
+        if hasattr(cs, f"{name}_phase"):
+            return getattr(cs, f"{name}_phase")
+        return getattr(_own_chip_smoke(), f"{name}_phase")
+
+    cs.BUDGET.setdefault("k1", 300)
+    cs.BUDGET.setdefault("panel", 300)  # before the phase was added
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     print(f"  {smi}", flush=True)
     with cs.phase("build"):
         _lib.load()
+    if "kernels" in phases:
+        with cs.phase("kernels"):
+            cs.kernel_phase(dev)
+    if "k1" in phases:
+        with cs.phase("k1"):
+            k1_times(cs, dev, smi)
+    if not set(phases) & set(PHASES[2:]):
+        return
     with cs.phase("slice"):
-        _, sys_, rm, gsm_full, x_full, _ = cs.slice_phase(dev)
-    if hasattr(cs, "entry_phase") and not skip_entry:
+        _, sys_, rm, gsm_full, x_full, t_full = cs.slice_phase(dev)
+    if "entry" in phases and hasattr(cs, "entry_phase"):
         with cs.phase("entry"):
             cs.entry_phase(dev, sys_, gsm_full, smi)
-    with cs.phase("krylov"):
-        cs.krylov_phase(dev)
-    with cs.phase("parallel"):
-        cs.parallel_phase(dev, sys_, rm, x_full, smi)
+    if "panel" in phases:
+        with cs.phase("panel"):
+            runner("panel")(dev, sys_, gsm_full, smi)
+    if "reduced_lu" in phases:
+        with cs.phase("reduced_lu"):
+            cs.reduced_lu_phase(dev, sys_, gsm_full)
+    if "serve" in phases:
+        with cs.phase("serve"):
+            cs.serve_phase(dev, sys_, rm, gsm_full, x_full, t_full)
+    if "matfree" in phases:
+        with cs.phase("matfree"):
+            cs.matfree_phase(dev)
+    if "krylov" in phases:
+        with cs.phase("krylov"):
+            cs.krylov_phase(dev)
+    if "parallel" in phases:
+        with cs.phase("parallel"):
+            cs.parallel_phase(dev, sys_, rm, x_full, smi)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--skip-entry", action="store_true",
-                    help="leave out the entry phase")
+    ap.add_argument("--phases", default=DEFAULT,
+                    help=f"comma-separated, of {', '.join(PHASES)}")
     ap.add_argument("--run-one", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("dirs", nargs="+")
     opts = ap.parse_args(argv)
+    phases = [p for p in opts.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
     if opts.run_one:
-        run_one(os.path.abspath(opts.dirs[0]), opts.skip_entry)
+        run_one(os.path.abspath(opts.dirs[0]), phases)
         return 0
     failed = []
     for i, d in enumerate(opts.dirs):
         root = os.path.abspath(d)
         print(f"=== run {i}: {root}", flush=True)
         rc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--run-one", root]
-            + (["--skip-entry"] if opts.skip_entry else []),
+            [sys.executable, os.path.abspath(__file__), "--run-one",
+             "--phases", ",".join(phases), root],
             cwd=root).returncode
         print(f"=== run {i} rc={rc}", flush=True)
         if rc:

@@ -450,8 +450,8 @@ def extra_banded(run: Run, h: Headline) -> None:
 
 def extra_panel_factor(run: Run, h: Headline) -> None:
     """Panel-LU factor rates at the sweep's batch (solve_chunk): the
-    block-pivot factor at panel_width (K1's cluster kernel, K2, K3) and
-    the full-pivot factor at panel 128 (K1's one-CTA kernel with C̃)."""
+    block-pivot factor at panel_width (K1, K2, K3) and the full-pivot
+    factor at panel 128 (K1 with C̃ on 8-CTA clusters, K2, K3)."""
     from morfem_tpu_torch.ops.assembly import assemble_at
     from morfem_tpu_torch.ops.panel_lu import (
         panel_lu_factor,

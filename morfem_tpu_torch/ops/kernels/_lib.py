@@ -45,10 +45,9 @@ _c_void_p, _c_int, _c_int64, _c_float = (
 )
 # argtypes of every launcher: pointers and the stream as c_void_p (a plain
 # int would be cut to 32 bits), sizes as c_int / c_int64
-_PANEL = [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p]
 _SIGNATURES = {
-    "morfem_panel_factor_cluster": _PANEL,
-    "morfem_panel_factor_cta": _PANEL,
+    "morfem_panel_factor": [_c_void_p] * 6 + [_c_int] * 7 + [_c_void_p],
+    "morfem_panel_factor_max_clusters": [_c_int] * 6 + [_c_void_p],
     "morfem_split_words": [_c_void_p] * 2 + [_c_int] * 4 + [_c_int64] * 3
     + [_c_void_p],
     "morfem_mm_words": [_c_void_p] * 4 + [_c_int] * 4 + [_c_int64] * 3

@@ -9,14 +9,17 @@ elimination coefficients C̃.
 Pivots come back as int32 (the TPU kernel carried them as f32, an artefact
 of that chip). With ``want_ct=False`` C̃ is neither computed nor returned
 (the block-pivot LU discards it). A CPU tensor takes `panel_factor_plain`;
-a CUDA tensor launches one of two kernels, picked by shape alone: the
-cluster kernel (each panel split by lanes over 8 CTAs, held in their
-shared memory) when its lanes fit, else the one-CTA kernel (panel in
-device memory), which only the full-pivot escalation's [8, 128, 3456]
-panel with C̃ needs.
+a CUDA tensor launches the one kernel, each panel split by lanes over a
+thread-block cluster, in the variant that `panel_factor_plan` names from
+the shape alone: ``"cluster8"`` (8 CTAs, the CTA's lanes in its shared
+memory) where they fit, else ``"cluster16"`` (16 CTAs, non-portable) where
+they fit and the card can place such a cluster, else ``"cluster_global"``
+(the same split, the lanes in device memory). A launch that fails raises.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -24,22 +27,108 @@ from morfem_tpu_torch.ops.kernels import _lib
 
 # shared memory a block may use on Hopper (232,448 bytes)
 MAX_SMEM = 232448
-CLUSTER = 8  # CTAs per panel in the cluster kernel (portable cluster size)
 
 
-def cluster_smem_bytes(p: int, npl: int, want_ct: bool) -> int:
-    """Shared memory per CTA of the cluster kernel for a [P, Npl] panel
-    (``csrc/panel_factor.cu::cluster_smem_bytes``): the step slots, the
-    CTA's L = ceil(Npl / 8) lanes of pt (and of C̃), c_j and the mask over
-    those lanes, and the pivot lane's column (and its C̃ column)."""
-    lanes = -(-npl // CLUSTER)
-    per = 2 if want_ct else 1
-    return 2 * CLUSTER * 12 + 4 * (per * p * lanes + 2 * lanes + per * p)
+class PanelPlan(NamedTuple):
+    """How the kernel factors a [P, Npl] panel (`panel_factor_plan`)."""
+
+    variant: str  # "cluster8", "cluster16" or "cluster_global"
+    cluster: int  # CTAs per batch entry
+    lanes: int  # lanes (matrix rows) per CTA
+    smem: int  # dynamic shared memory per CTA, bytes
+    in_smem: bool  # the CTA's lanes live in its shared memory
+    threads: int  # threads per CTA
 
 
-def uses_cluster_kernel(p: int, npl: int, want_ct: bool) -> bool:
-    """Whether a CUDA panel of this shape goes to the cluster kernel."""
-    return cluster_smem_bytes(p, npl, want_ct) <= MAX_SMEM
+def cta_threads(lanes: int) -> int:
+    """Threads per CTA: 512 where a CTA owns 96 lanes or more (the update
+    of its rows wants the warps), else 256 (three CTAs of the block-pivot
+    [G, 384, 384] panels then share an SM)."""
+    return 512 if lanes >= 96 else 256
+
+
+def cluster_lanes(npl: int, cluster: int) -> int:
+    """Lanes (matrix rows) per CTA: ceil(Npl / cluster)."""
+    return -(-npl // cluster)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def cluster_smem_bytes(p: int, npl: int, cluster: int, in_smem: bool) -> int:
+    """Shared memory per CTA (``csrc/panel_factor.cu::smem_bytes``): the
+    pivot lane's column, the CTA's buffer of L lanes, each of stride
+    round_up(P, 32) + 4 (or, with the buffer in device memory, c_j over
+    its L lanes), the mask over its lanes and the step slots. The same
+    with or without C̃: one buffer holds both."""
+    lanes = cluster_lanes(npl, cluster)
+    buf = lanes * (_round_up(p, 32) + 4) if in_smem else lanes
+    return 4 * (_round_up(p, 4) + buf + lanes + 6 * cluster + 2)
+
+
+# (cluster, lanes in shared memory) in order of preference
+_CANDIDATES = ((8, True), (16, True), (16, False), (8, False))
+
+
+def panel_factor_plan(
+    p: int, npl: int, want_ct: bool = True,
+    placeable: Optional[Callable[[int, int, bool, int, bool], bool]] = None,
+) -> PanelPlan:
+    """The kernel variant for a [P, Npl] panel, from its shape alone.
+
+    ``placeable(p, npl, want_ct, cluster, in_smem)`` says whether a
+    cluster of more than 8 CTAs at that shared memory can be placed on the
+    card at all (the wrapper asks `cudaOccupancyMaxActiveClusters`);
+    ``None`` takes yes, the H100's answer at every shape the port runs.
+    """
+    for cluster, in_smem in _CANDIDATES:
+        smem = cluster_smem_bytes(p, npl, cluster, in_smem)
+        if smem > MAX_SMEM:
+            continue
+        if cluster > 8 and placeable is not None and not placeable(
+                p, npl, want_ct, cluster, in_smem):
+            continue
+        variant = f"cluster{cluster}" if in_smem else "cluster_global"
+        lanes = cluster_lanes(npl, cluster)
+        return PanelPlan(variant, cluster, lanes, smem, in_smem,
+                         cta_threads(lanes))
+    raise ValueError(
+        f"panel_factor: a [{p}, {npl}] panel fits no cluster variant"
+    )
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def max_active_clusters(device: torch.device, p: int, npl: int,
+                        want_ct: bool, cluster: int, in_smem: bool) -> int:
+    """How many clusters of `cluster` CTAs at the shared memory of a
+    [P, Npl] panel the card holds at once (`cudaOccupancyMaxActiveClusters`;
+    0: none can be placed). One query per shape and variant, cached."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    key = (index, p, npl, bool(want_ct), cluster, bool(in_smem))
+    if key not in _MAX_CLUSTERS:
+        import ctypes
+
+        count = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _lib.load().call(
+                "morfem_panel_factor_max_clusters", p, npl, int(want_ct),
+                cluster, int(in_smem),
+                cta_threads(cluster_lanes(npl, cluster)), ctypes.byref(count))
+        _MAX_CLUSTERS[key] = count.value
+    return _MAX_CLUSTERS[key]
+
+
+def placeable_on(device: torch.device):
+    """`placeable` for `panel_factor_plan` on the card `device`."""
+    def placeable(p, npl, want_ct, cluster, in_smem):
+        return max_active_clusters(device, p, npl, want_ct, cluster,
+                                   in_smem) > 0
+
+    return placeable
 
 
 def _check(panel_t: torch.Tensor, avail: torch.Tensor):
@@ -80,8 +169,8 @@ def panel_factor_plain(panel_t: torch.Tensor, avail: torch.Tensor,
         mx = score.max(dim=1, keepdim=True).values
         cand = torch.where(score >= mx, lanes, npl)
         r = cand.min(dim=1, keepdim=True).values  # lowest lane on ties
-        # a column of NaNs finds no maximum; keep the index in range (the
-        # kernel does the same)
+        # a NaN score finds no maximum (max propagates it); the pivot is
+        # lane 0, in the kernel too
         r = torch.where(r < npl, r, torch.zeros_like(r))
         oh = lanes[None, :] == r
         inv = 1.0 / col.gather(1, r)
@@ -109,7 +198,7 @@ def panel_factor(panel_t: torch.Tensor, avail: torch.Tensor,
     """Factor a batch of [Npl, P] panels given transposed as [G, P, Npl].
 
     Returns (fac_t, c_t or None, piv int32 [G, P], avail_new) — see the
-    header of `csrc/panel_factor.cu` for their meaning.
+    header of `csrc/panel_factor.cu` for their meaning. Takes G ≤ 65,535.
     """
     if panel_t.device.type == "cpu":
         return panel_factor_plain(panel_t, avail, want_ct)
@@ -119,25 +208,17 @@ def panel_factor(panel_t: torch.Tensor, avail: torch.Tensor,
     if not (panel_t.is_contiguous() and avail.is_contiguous()):
         raise ValueError("panel_factor needs contiguous panel_t and avail")
     g, p, npl = panel_t.shape
-    if uses_cluster_kernel(p, npl, want_ct):
-        entry = "morfem_panel_factor_cluster"
-    elif 2 * npl * 4 + 512 <= MAX_SMEM:
-        entry = "morfem_panel_factor_cta"
-    else:
-        raise ValueError(
-            f"panel_factor keeps 2*Npl floats in shared memory; Npl={npl} "
-            f"does not fit in {MAX_SMEM} bytes"
-        )
+    plan = panel_factor_plan(p, npl, want_ct, placeable_on(panel_t.device))
     fac = torch.empty_like(panel_t)
     ct = torch.empty_like(panel_t) if want_ct else None
     piv = torch.empty((g, p), dtype=torch.int32, device=panel_t.device)
     av_out = torch.empty_like(avail)
     lib = _lib.load()
     lib.call(
-        entry, panel_t.data_ptr(), avail.data_ptr(), fac.data_ptr(),
-        ct.data_ptr() if want_ct else None, piv.data_ptr(),
-        av_out.data_ptr(), g, p, npl, int(want_ct),
-        _lib.stream_handle(panel_t),
+        "morfem_panel_factor", panel_t.data_ptr(), avail.data_ptr(),
+        fac.data_ptr(), ct.data_ptr() if want_ct else None, piv.data_ptr(),
+        av_out.data_ptr(), g, p, npl, int(want_ct), plan.cluster,
+        int(plan.in_smem), plan.threads, _lib.stream_handle(panel_t),
     )
     panel_factor.launches += 1
     return fac, ct, piv, av_out

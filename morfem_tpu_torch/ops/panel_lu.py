@@ -56,9 +56,10 @@ def full_pivot_panel(n: int, panel: int) -> int:
 
     The reference clamps wide panels back to 128 where its Pallas kernel's
     five P×Npl f32 buffers would overflow the TPU's 16 MB VMEM. The card
-    has no such limit (K1's one-CTA kernel takes any width); the clamp is
-    kept for parity, so that both packages factor the same panels and pick
-    the same pivots.
+    has another limit (K1 keeps a CTA's lanes of the panel in its shared
+    memory on a cluster of 8 or 16 CTAs, else in device memory, and takes
+    any panel this clamp leaves); the clamp is kept for parity, so that
+    both packages factor the same panels and pick the same pivots.
     """
     if panel > PANEL and 5 * panel * _round_up(n, panel) * 4 > 12 << 20:
         return PANEL

@@ -478,32 +478,74 @@ def _same_factor(got, ref):
             assert torch.equal(a, b), float((a - b).abs().max())
 
 
-@pytest.mark.parametrize("g,p,npl,want_ct", [
-    (8, 384, 384, False),  # the block-pivot diagonal blocks
-    (8, 384, 384, True),
-    (3, 40, 77, True),     # ragged lanes: the last CTAs hold 5 or none
-    (2, 9, 9, False),
-    (1, 128, 3456, True),  # full pivot with C̃: the one-CTA kernel
-    (1, 128, 3456, False),
-])
-def test_panel_factor_kernels_equal_the_plain_version(cuda, g, p, npl,
-                                                      want_ct):
-    from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
-
-    rng = np.random.default_rng(g * p + npl)
-    pt = _t(rng.standard_normal((g, p, npl)).astype(np.float32), cuda)
+def _panel_inputs(g, p, npl, dev, seed):
+    rng = np.random.default_rng(seed)
+    pt = _t(rng.standard_normal((g, p, npl)).astype(np.float32), dev)
     av = np.ones((g, npl), np.float32)
     if p < npl:
         av[:, rng.choice(npl, (npl - p) // 2, replace=False)] = 0.0
-    av = _t(av, cuda)
+    return pt, _t(av, dev)
+
+
+@pytest.mark.parametrize("g,p,npl,want_ct,variant", [
+    (8, 384, 384, False, "cluster8"),  # the block-pivot diagonal blocks
+    (8, 384, 384, True, "cluster8"),
+    (3, 40, 77, True, "cluster8"),  # ragged lanes: the last CTA holds 7 of 10
+    (2, 9, 9, False, "cluster8"),  # 2 lanes a CTA, the last ones 1 or none
+    (1, 128, 3456, True, "cluster8"),  # full pivot with C̃, one solve
+    (1, 128, 3456, False, "cluster8"),
+    (6, 128, 3456, True, "cluster8"),  # the flagship step's 6 seeds
+    (20, 128, 3456, True, "cluster8"),  # the bench's batch: two waves
+    (1, 384, 1536, True, "cluster16"),  # panel 384 kept by full_pivot_panel
+    (1, 384, 1201, True, "cluster16"),  # ragged lanes over 16 CTAs
+    (1, 128, 8192, True, "cluster_global"),  # dense_cutoff: device memory
+    (1, 128, 8192, False, "cluster_global"),
+])
+def test_panel_factor_kernels_equal_the_plain_version(cuda, g, p, npl,
+                                                      want_ct, variant):
+    from morfem_tpu_torch.ops.kernels.panel_factor import panel_factor_plan
+
+    pt, av = _panel_inputs(g, p, npl, cuda, g * p + npl)
     reset_launch_counts()
     got = panel_factor(pt, av, want_ct=want_ct)
     ref = panel_factor_plain(pt, av, want_ct=want_ct)
     torch.cuda.synchronize()
     assert launch_counts()["panel_factor"] == 1
-    assert uses_cluster_kernel(p, npl, want_ct) is not (
-        (p, npl, want_ct) == (128, 3456, True))
+    assert panel_factor_plan(p, npl, want_ct).variant == variant
     _same_factor(got, ref)
+
+
+@pytest.mark.parametrize("cluster,in_smem", [(8, True), (8, False),
+                                             (16, True), (16, False)])
+@pytest.mark.parametrize("want_ct", [True, False])
+@pytest.mark.parametrize("threads", [256, 512])
+def test_every_panel_factor_instance_equals_the_plain_version(
+        cuda, cluster, in_smem, want_ct, threads):
+    # each (cluster size, where the lanes live, C̃) instance of the kernel
+    # at each block size, launched directly (the wrapper picks one per
+    # shape), on ragged lanes
+    import ctypes
+
+    from morfem_tpu_torch.ops.kernels import _lib
+
+    g, p, npl = 3, 40, 77
+    pt, av = _panel_inputs(g, p, npl, cuda, 5)
+    fac, piv = torch.empty_like(pt), torch.empty((g, p), dtype=torch.int32,
+                                                 device=cuda)
+    ct = torch.empty_like(pt) if want_ct else None
+    av_out = torch.empty_like(av)
+    lib = _lib.load()
+    count = ctypes.c_int(0)
+    lib.call("morfem_panel_factor_max_clusters", p, npl, int(want_ct),
+             cluster, int(in_smem), threads, ctypes.byref(count))
+    assert count.value > 0
+    lib.call("morfem_panel_factor", pt.data_ptr(), av.data_ptr(),
+             fac.data_ptr(), ct.data_ptr() if want_ct else None,
+             piv.data_ptr(), av_out.data_ptr(), g, p, npl, int(want_ct),
+             cluster, int(in_smem), threads, _lib.stream_handle(pt))
+    ref = panel_factor_plain(pt, av, want_ct=want_ct)
+    torch.cuda.synchronize()
+    _same_factor((fac, ct, piv, av_out), ref)
 
 
 @pytest.mark.parametrize("lanes", [(20, 100), (5, 9), (100, 20)])
@@ -520,6 +562,55 @@ def test_panel_factor_kernel_tie_goes_to_the_lowest_lane(cuda, lanes):
         ref = panel_factor_plain(pt, av, want_ct=want_ct)
         assert int(got[2][0, 0]) == min(lanes)
         _same_factor(got, ref)
+
+
+@pytest.mark.parametrize("p,npl,lanes", [
+    (128, 3456, (3000, 500)),   # CTAs 6 and 1 of 8
+    (384, 1201, (1150, 100)),   # CTAs 15 and 1 of 16
+    (128, 8192, (7000, 600)),   # lanes in device memory
+])
+def test_panel_factor_tie_across_ctas_with_coefficients(cuda, p, npl, lanes):
+    # an exact tie in column 5, after C̃ has rows, between lanes owned by
+    # two CTAs: the two lanes are negatives of each other and 0 in columns
+    # 0-4 (so steps 0-4 leave them alone), 50 in column 5; the lower lane
+    # pivots, and everything equals the plain version
+    rng = np.random.default_rng(npl)
+    pt = rng.uniform(-1.0, 1.0, (1, p, npl)).astype(np.float32)
+    pt[:, :5, lanes[0]] = 0.0
+    pt[:, 5, lanes[0]] = 50.0
+    pt[:, :, lanes[1]] = -pt[:, :, lanes[0]]
+    pt, av = _t(pt, cuda), torch.ones((1, npl), device=cuda)
+    got = panel_factor(pt, av, want_ct=True)
+    ref = panel_factor_plain(pt, av, want_ct=True)
+    assert int(ref[2][0, 5]) == min(lanes)
+    _same_factor(got, ref)
+
+
+def _same_with_nans(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
+@pytest.mark.parametrize("p,npl", [(16, 128), (128, 3456), (384, 1201)])
+@pytest.mark.parametrize("whole", [True, False])
+def test_panel_factor_nan_column_pivots_at_lane_zero(cuda, p, npl, whole):
+    # a NaN score anywhere in column 3 (the whole column, or one entry in
+    # a CTA other than lane 0's) finds no maximum: the pivot is lane 0, as
+    # in the plain version; with C̃
+    rng = np.random.default_rng(p + npl)
+    pt = rng.standard_normal((2, p, npl)).astype(np.float32)
+    if whole:
+        pt[:, 3, :] = np.nan
+    else:
+        pt[:, 3, npl - 2] = np.nan
+    pt, av = _t(pt, cuda), torch.ones((2, npl), device=cuda)
+    got = panel_factor(pt, av, want_ct=True)
+    ref = panel_factor_plain(pt, av, want_ct=True)
+    torch.cuda.synchronize()
+    assert int(ref[2][0, 3]) == 0
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    for a, b in zip(got[:2], ref[:2]):
+        assert _same_with_nans(a, b)
 
 
 @pytest.mark.parametrize("m,k,n", [(70, 50, 90), (129, 384, 257),

@@ -31,7 +31,7 @@ from morfem_tpu_torch.ops.kernels.fused_mm import (
     mm_words_split_plain,
     split_words_plain,
 )
-from morfem_tpu_torch.ops.kernels.panel_factor import uses_cluster_kernel
+from morfem_tpu_torch.ops.kernels.panel_factor import panel_factor_plan
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -46,7 +46,9 @@ def _one_torch_thread():
 
 
 @pytest.mark.parametrize(
-    "g,p,npl,used", [(2, 16, 128, 0), (2, 128, 256, 64), (1, 8, 384, 100)]
+    "g,p,npl,used", [(2, 16, 128, 0), (2, 128, 256, 64), (1, 8, 384, 100),
+                     # lanes a multiple of neither 8 nor 16 (ragged CTAs)
+                     (1, 32, 200, 40)]
 )
 def test_panel_factor_matches_pallas(g, p, npl, used):
     rng = np.random.default_rng(100 + p + used)
@@ -100,15 +102,43 @@ def test_panel_factor_without_coefficients_is_the_same_factor(used):
     assert panel_factor(pt, av, want_ct=False)[1] is None
 
 
-@pytest.mark.parametrize("shape,want_ct,cluster", [
-    ((384, 384), False, True),   # the block-pivot diagonal blocks
-    ((384, 384), True, True),
-    ((128, 3456), True, False),  # full pivot with C̃: 3.5 MB, one CTA
-    ((128, 3456), False, True),
-    ((24, 200), True, True),
+@pytest.mark.parametrize("shape,want_ct,variant", [
+    ((384, 384), False, "cluster8"),   # the block-pivot diagonal blocks
+    ((384, 384), True, "cluster8"),    # one buffer: half of two
+    ((128, 3456), True, "cluster8"),   # full pivot with C̃: 225 KB a CTA
+    ((128, 3456), False, "cluster8"),
+    ((24, 200), True, "cluster8"),
+    ((384, 1536), True, "cluster16"),  # full_pivot_panel keeps 384 here
+    ((128, 8192), True, "cluster_global"),  # dense_cutoff: 270 KB on 16
 ])
-def test_panel_factor_picks_its_kernel_by_shape(shape, want_ct, cluster):
-    assert uses_cluster_kernel(*shape, want_ct) is cluster
+def test_panel_factor_picks_its_kernel_by_shape(shape, want_ct, variant):
+    assert panel_factor_plan(*shape, want_ct).variant == variant
+
+
+@pytest.mark.parametrize("shape,cluster,smem", [
+    ((128, 3456), 8, 230_536),   # 432 lanes x 132 x 4 + mask, column, slots
+    ((384, 384), 8, 76_424),     # two [P, L] buffers took 151,104
+    ((384, 1536), 16, 151_304),  # 96 lanes x 388 x 4 + the rest
+])
+def test_panel_factor_keeps_one_buffer_per_cta(shape, cluster, smem):
+    # C̃ and the live panel rows share one [P, L] buffer, so C̃ costs no
+    # shared memory
+    with_ct = panel_factor_plan(*shape, True)
+    assert with_ct == panel_factor_plan(*shape, False)
+    assert (with_ct.cluster, with_ct.smem) == (cluster, smem)
+    assert with_ct.in_smem and with_ct.lanes * cluster >= shape[1]
+
+
+def test_panel_factor_plan_without_16_cta_clusters():
+    # where the card cannot place a 16-CTA cluster, such shapes keep their
+    # lanes in device memory over 8 CTAs; nothing gets one CTA per entry
+    def never(*_):
+        return False
+
+    assert panel_factor_plan(128, 3456, True, never).variant == "cluster8"
+    for p, npl in ((384, 1536), (128, 8192)):
+        plan = panel_factor_plan(p, npl, True, never)
+        assert (plan.variant, plan.cluster) == ("cluster_global", 8)
 
 
 def _bits(x):
