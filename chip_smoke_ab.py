@@ -15,6 +15,11 @@ this order, each with its usual checks:
               [1, 128, 8192]) and at the block-pivot [8, 384, 384] and
               [20, 384, 384] without, through the API that every tree of
               the port has, each call's pivots held to the plain version;
+              then K2 and K3 at the block-pivot path's shapes
+              ([8,3072,384]@[8,384,3072] + t and [8,384,384]@[8,384,3072];
+              the A12 rows [8,384,3072]), per call and on the device alone
+              (K2's split passes and GEMM apart, from a torch.profiler
+              trace);
   slice       the waveguide end to end (the later phases need it; it runs
               whenever one of them is named);
   entry       the flagship step, where the checkout has it;
@@ -56,11 +61,44 @@ def _own_chip_smoke():
     return mod
 
 
+def kernel_device_ms(fn, names, reps=20):
+    """Device time of each kernel whose name contains one of `names`, per
+    call of `fn`, from a torch.profiler trace of `reps` calls."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    us = dict.fromkeys(names, 0.0)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for n in names:
+                if n in e["name"]:
+                    us[n] += float(e["dur"])
+    return {n: t / 1e3 / reps for n, t in us.items()}
+
+
 def k1_times(cs, dev, smi):
-    """K1 per call (CUDA events, mean of 5 after a warm-up) at K1_SHAPES."""
+    """K1 per call (CUDA events, mean of 5 after a warm-up) at K1_SHAPES,
+    then K2 and K3 at the block-pivot path's shapes (mean of 50 and 20)."""
     import torch
 
-    from morfem_tpu_torch.ops.kernels import panel_factor, panel_factor_plain
+    from morfem_tpu_torch.ops.kernels import (
+        gather_rows, mm_words, panel_factor, panel_factor_plain,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for (g, p, npl), want_ct in K1_SHAPES:
@@ -73,6 +111,26 @@ def k1_times(cs, dev, smi):
         ms = cs.cuda_ms(lambda: panel_factor(pt, av, want_ct=want_ct), 5)
         print(f"  k1 [{g},{p},{npl}] want_ct={want_ct} kernel_ms={ms:.4f} "
               f"({smi})", flush=True)
+    for g, m, k, n, with_t in ((8, 3072, 384, 3072, True),
+                               (8, 384, 384, 3072, False)):
+        c = torch.randn((g, m, k), generator=gen, device=dev)
+        r = torch.randn((g, k, n), generator=gen, device=dev)
+        t = (torch.randn((g, m, n), generator=gen, device=dev) if with_t
+             else None)
+        ms = cs.cuda_ms(lambda: mm_words(c, r, t, sign=-1), 50)
+        dev_ms = kernel_device_ms(lambda: mm_words(c, r, t, sign=-1),
+                                  ("split_words_kernel", "mm_words_kernel"))
+        print(f"  k2 [{g},{m},{k}]@[{g},{k},{n}] t={with_t} "
+              f"kernel_ms={ms:.4f} split_device_ms="
+              f"{dev_ms['split_words_kernel']:.4f} gemm_device_ms="
+              f"{dev_ms['mm_words_kernel']:.4f} ({smi})", flush=True)
+    src = torch.randn((8, 384, 3072), generator=gen, device=dev)
+    idx = torch.stack([torch.randperm(384, generator=gen, device=dev)
+                       for _ in range(8)]).to(torch.int32)
+    ms = cs.cuda_ms(lambda: gather_rows(src, idx), 20)
+    dev_ms = cs.device_ms(lambda: gather_rows(src, idx))
+    print(f"  k3 [8,384,3072] P=384 kernel_ms={ms:.4f} device_ms="
+          f"{cs._fmt(dev_ms)} ({smi})", flush=True)
 
 
 def run_one(root: str, phases) -> None:

@@ -41,7 +41,14 @@
 //   0), which is added to an FP32 master with round-to-nearest, as an FMA
 //   loop would; chip_smoke.py checks that the result is no farther from
 //   the exact product than cuBLAS's FP32 one.
+// * Any batch. The batch entry is the grid's z index, which holds at most
+//   65,535, so each entry point launches once per 65,535 entries: the
+//   split pass on pointers offset to the launch's first entry (its planes
+//   stay one [3, G, R, Kp] buffer: the plane stride is the whole G's), the
+//   GEMM told that entry, g0, for its coordinates in the one tensor map
+//   over all G.
 
+#include <algorithm>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,6 +58,7 @@ namespace {
 // ---------------------------------------------------------------------------
 // split pass
 
+constexpr int MAX_BATCH = 65535;  // the grid's z limit: entries a launch
 constexpr int ST = 32;  // tile side of the split pass
 
 // subnormals to a zero of their sign, as the reference's arithmetic does
@@ -223,7 +231,7 @@ mm_words_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
                 const float* __restrict__ t, float* __restrict__ out, int G,
                 int M, int N, int Kp, int64_t t_sg, int64_t t_sm,
-                int64_t t_sn, float sign) {
+                int64_t t_sn, float sign, int g0) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // stage buffers 1024-byte aligned (the swizzle atom), barriers after them
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -232,7 +240,7 @@ mm_words_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + STAGES);
   const uint32_t tiles = smem_addr(base);
 
-  const int g = blockIdx.z;
+  const int g = g0 + blockIdx.z;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int nk = Kp / BK;
   const int tid = threadIdx.x;
@@ -362,12 +370,15 @@ bool word_map(CUtensorMap* map, const void* planes, int G, int R, int Kp) {
 extern "C" int morfem_split_words(const float* x, uint16_t* out, int G, int R,
                                   int K, int Kp, int64_t sg, int64_t sr,
                                   int64_t sk, void* stream) {
-  if (G <= 0 || R <= 0 || K <= 0 || Kp < K || Kp % BK || G > 65535)
+  if (G <= 0 || R <= 0 || K <= 0 || Kp < K || Kp % BK)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((Kp + ST - 1) / ST, (R + ST - 1) / ST, G);
+  dim3 grid((Kp + ST - 1) / ST, (R + ST - 1) / ST);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  split_words_kernel<<<grid, dim3(ST, 8), 0, (cudaStream_t)stream>>>(
-      x, out, G, R, K, Kp, sg, sr, sk);
+  for (int g0 = 0; g0 < G; g0 += MAX_BATCH) {
+    grid.z = std::min(G - g0, MAX_BATCH);
+    split_words_kernel<<<grid, dim3(ST, 8), 0, (cudaStream_t)stream>>>(
+        x + g0 * sg, out + (int64_t)g0 * R * Kp, G, R, K, Kp, sg, sr, sk);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -377,9 +388,9 @@ extern "C" int morfem_mm_words(const uint16_t* a, const uint16_t* b,
                                const float* t, float* out, int G, int M,
                                int N, int Kp, int64_t t_sg, int64_t t_sm,
                                int64_t t_sn, float sign, void* stream) {
-  if (G <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % BK || G > 65535)
+  if (G <= 0 || M <= 0 || N <= 0 || Kp <= 0 || Kp % BK)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, G);
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   if (!word_map(&map_a, a, G, M, Kp) || !word_map(&map_b, b, G, N, Kp))
@@ -389,8 +400,11 @@ extern "C" int morfem_mm_words(const uint16_t* a, const uint16_t* b,
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, THREADS, SMEM_BYTES, s>>>(map_a, map_b, t, out, G, M, N,
-                                             Kp, t_sg, t_sm, t_sn, sign);
+    for (int g0 = 0; g0 < G; g0 += MAX_BATCH) {
+      grid.z = std::min(G - g0, MAX_BATCH);
+      kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+          map_a, map_b, t, out, G, M, N, Kp, t_sg, t_sm, t_sn, sign, g0);
+    }
     return cudaSuccess;
   };
   cudaError_t e;

@@ -80,7 +80,13 @@
 //      its own lanes of the live rows.
 // A cluster barrier after the last step keeps every CTA's shared memory
 // alive until the others have read it.
+//
+// Any batch: the batch entry is the grid's y index, which holds at most
+// 65,535, so the entry point launches once per 65,535 entries, on pointers
+// offset to each launch's first one (the reference's grid (G,) has no
+// bound).
 
+#include <algorithm>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -93,6 +99,7 @@ namespace {
 constexpr int MAX_THREADS = 512;  // threads per CTA: 256 or 512, by shape
 constexpr int NOBODY = 0x7fffffff;
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
+constexpr int MAX_BATCH = 65535;  // the grid's y limit: entries a launch
 
 __device__ __forceinline__ bool better(float s, int i, float bs, int bi) {
   return s > bs || (s == bs && i < bi);
@@ -471,7 +478,7 @@ KernelFn pick(bool want_ct, bool in_smem) {
 }
 
 // The kernel instance of (cs, want_ct, in_smem) with its attributes set for
-// `smem` bytes, and its launch configuration over G batch entries.
+// `smem` bytes, and its launch configuration over G <= MAX_BATCH entries.
 cudaError_t prepare(int cs, bool want_ct, bool in_smem, size_t smem,
                     int threads, int G, cudaStream_t s, KernelFn* fn,
                     cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
@@ -532,7 +539,7 @@ extern "C" int morfem_panel_factor(const float* panel_t, const float* avail,
                                    float* avail_out, int G, int P, int Npl,
                                    int want_ct, int cs, int in_smem,
                                    int threads, void* stream) {
-  if (G <= 0 || P <= 0 || Npl <= 0 || G > 65535 || P > Npl || cs <= 0)
+  if (G <= 0 || P <= 0 || Npl <= 0 || P > Npl || cs <= 0)
     return (int)cudaErrorInvalidValue;
   if (want_ct && ct == nullptr) return (int)cudaErrorInvalidValue;
   const int L = (Npl + cs - 1) / cs;
@@ -540,11 +547,17 @@ extern "C" int morfem_panel_factor(const float* panel_t, const float* avail,
   KernelFn fn;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t e = prepare(cs, want_ct != 0, in_smem != 0, smem, threads, G,
-                          (cudaStream_t)stream, &fn, &cfg, &attr);
+  cudaError_t e =
+      prepare(cs, want_ct != 0, in_smem != 0, smem, threads,
+              std::min(G, MAX_BATCH), (cudaStream_t)stream, &fn, &cfg, &attr);
   if (e != cudaSuccess) return (int)e;
-  e = cudaLaunchKernelEx(&cfg, fn, panel_t, avail, fac, ct, piv, avail_out,
-                         P, Npl, L);
-  if (e != cudaSuccess) return (int)e;
+  for (int g0 = 0; g0 < G; g0 += MAX_BATCH) {
+    const int64_t pan = (int64_t)g0 * P * Npl, lanes = (int64_t)g0 * Npl;
+    cfg.gridDim.y = std::min(G - g0, MAX_BATCH);
+    e = cudaLaunchKernelEx(&cfg, fn, panel_t + pan, avail + lanes, fac + pan,
+                           ct ? ct + pan : ct, piv + (int64_t)g0 * P,
+                           avail_out + lanes, P, Npl, L);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }

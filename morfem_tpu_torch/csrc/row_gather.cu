@@ -24,8 +24,11 @@
 // sub-blocks without a copy. The indices are read in the caller's type
 // (int32 or int64, a template parameter) at their own strides, so the
 // wrapper launches no cast. An index outside [0, N) writes a NaN row
-// rather than reading out of bounds.
+// rather than reading out of bounds. Any batch: the batch entry is the
+// grid's y index, which holds at most 65,535, so the entry point launches
+// once per 65,535 entries, on pointers offset to each launch's first one.
 
+#include <algorithm>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -33,6 +36,7 @@
 namespace {
 
 constexpr int ROWS = 4, NT = 256;
+constexpr int MAX_BATCH = 65535;  // the grid's y limit: entries a launch
 
 template <typename Idx>
 __global__ void __launch_bounds__(NT)
@@ -67,9 +71,12 @@ int launch(const float* src, const Idx* idx, float* out, int G, int N, int P,
            cudaStream_t stream) {
   const bool vec4 = (W % 4 == 0) && (s_sg % 4 == 0) && (s_sn % 4 == 0) &&
                     ((uintptr_t)src % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  dim3 grid((P + ROWS - 1) / ROWS, G);
-  gather_rows_kernel<Idx><<<grid, NT, 0, stream>>>(
-      src, idx, out, N, P, W, s_sg, s_sn, s_ig, s_ip, vec4);
+  for (int g0 = 0; g0 < G; g0 += MAX_BATCH) {
+    dim3 grid((P + ROWS - 1) / ROWS, std::min(G - g0, MAX_BATCH));
+    gather_rows_kernel<Idx><<<grid, NT, 0, stream>>>(
+        src + g0 * s_sg, idx + g0 * s_ig, out + (int64_t)g0 * P * W, N, P, W,
+        s_sg, s_sn, s_ig, s_ip, vec4);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -80,7 +87,7 @@ extern "C" int morfem_gather_rows(const float* src, const void* idx,
                                   int idx_bytes, float* out, int G, int N,
                                   int P, int W, int64_t s_sg, int64_t s_sn,
                                   int64_t s_ig, int64_t s_ip, void* stream) {
-  if (G <= 0 || P <= 0 || W <= 0 || G > 65535)
+  if (G <= 0 || P <= 0 || W <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (idx_bytes == 4)

@@ -198,7 +198,7 @@ def panel_factor(panel_t: torch.Tensor, avail: torch.Tensor,
     """Factor a batch of [Npl, P] panels given transposed as [G, P, Npl].
 
     Returns (fac_t, c_t or None, piv int32 [G, P], avail_new) — see the
-    header of `csrc/panel_factor.cu` for their meaning. Takes G ≤ 65,535.
+    header of `csrc/panel_factor.cu` for their meaning. Any batch size G.
     """
     if panel_t.device.type == "cpu":
         return panel_factor_plain(panel_t, avail, want_ct)

@@ -1011,3 +1011,98 @@ def test_flagship_step_captures_and_replays(cuda, cfg_kw):
         assert all(counts[k] == 0 for k in kernels)
     else:
         assert all(counts[k] > 0 and counts[k] % 2 == 0 for k in kernels)
+
+
+def _int_valued(shape, rng, dev):
+    """f32 small integers: every K2 word product and sum is exact, so the
+    kernel equals its plain versions bit for bit whatever the order."""
+    return _t(rng.integers(-3, 4, size=shape).astype(np.float32), dev)
+
+
+@pytest.mark.parametrize("g", [65_536, 70_001])
+@pytest.mark.parametrize("case", ["k1", "k1_ct", "k2", "k2_t", "k3_int32",
+                                  "k3_int64"])
+def test_kernels_take_a_batch_past_the_grid_limit(cuda, g, case):
+    """K1–K3 past 65,535 matrices a launch (a grid dimension's limit), at
+    the smallest shapes they take: one wrapper call, one count, and the
+    plain version's result bit for bit at every batch entry."""
+    rng = np.random.default_rng(g)
+    reset_launch_counts()
+    if case.startswith("k1"):
+        panel, av = _panel_inputs(g, 8, 16, cuda, g)
+        got = panel_factor(panel, av, want_ct=case == "k1_ct")
+        ref = panel_factor_plain(panel, av, want_ct=case == "k1_ct")
+        kernel = "panel_factor"
+    elif case.startswith("k2"):
+        c = _int_valued((g, 64, 64), rng, cuda)
+        r = _int_valued((g, 64, 64), rng, cuda)
+        t = _int_valued((g, 64, 64), rng, cuda) if case == "k2_t" else None
+        got = (mm_words(c, r, t, sign=-1),)
+        ref = (mm_words_plain(c, r, t, sign=-1),)
+        kernel = "mm_words"
+    else:
+        src = _t(rng.standard_normal((g, 8, 128)).astype(np.float32), cuda)
+        dtype = np.int32 if case == "k3_int32" else np.int64
+        idx = _t(rng.integers(0, 8, size=(g, 128)).astype(dtype), cuda)
+        got, ref = (gather_rows(src, idx),), (gather_rows_plain(src, idx),)
+        kernel = "gather_rows"
+    torch.cuda.synchronize()
+    assert launch_counts()[kernel] == 1
+    if kernel == "panel_factor":
+        _same_factor(got, ref)
+    else:
+        assert torch.equal(got[0], ref[0])
+
+
+def _sleep_cycles(ms):
+    """`torch.cuda._sleep` cycles for about `ms` on this card (timed)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 10_000_000
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return int(cycles * ms / start.elapsed_time(end))
+
+
+def test_phase_timer_waits_for_the_card(cuda):
+    """A PhaseTimer() without a device synchronises the current card: a
+    phase that only enqueues ~50 ms of device work records it."""
+    from morfem_tpu_torch import PhaseTimer
+
+    cycles = _sleep_cycles(50.0)
+    timer = PhaseTimer()
+    with timer.phase("sleep"):
+        torch.cuda._sleep(cycles)
+    assert timer.times["sleep"] >= 0.040, timer.times
+
+
+def test_morfem_phases_add_up_to_its_wall_time(cuda):
+    """morfem(..., timer=PhaseTimer()) on the card: the phases hold the
+    device work they enqueue, so they sum to the call's synchronised wall
+    time but for the host's few steps between them."""
+    import time
+
+    from morfem_tpu_torch import MorfemConfig, PhaseTimer, morfem
+
+    rng = np.random.default_rng(4)
+    n = 400
+    g = rng.standard_normal((n, n))
+    ops = [_t((g + g.T) * 0.5 + 6.0 * np.eye(n), cuda),
+           torch.zeros((n, n), dtype=torch.float64, device=cuda),
+           -torch.eye(n, dtype=torch.float64, device=cuda),
+           _t(rng.standard_normal((n, 2)), cuda)]
+    domain = torch.linspace(0.8, 1.6, 2000, dtype=torch.float64, device=cuda)
+    cfg = MorfemConfig(error_threshold=1e-10)
+    morfem(domain, *ops, config=cfg)  # warm-up
+    timer = PhaseTimer()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    morfem(domain, *ops, config=cfg, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    phases = sum(timer.times.values())
+    assert set(timer.times) == {"projection base", "projection",
+                                "reduced sweep"}
+    assert 0.0 <= wall - phases < 5e-3, (wall, timer.times)
