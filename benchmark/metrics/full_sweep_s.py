@@ -1,0 +1,7 @@
+"""Time per full-order sweep plus GSM: the whole window over the sweeps
+completed in it (the window closes at a call boundary)."""
+
+
+def read(rec):
+    w = rec.window
+    return w.window_s / w.calls if w.calls else None
