@@ -23,15 +23,6 @@ Phases, each printing one progress line with its seconds and numbers:
                refinement iterations per chunk), f64 spot checks of
                full-order solutions, and each kernel's launch count over that
                run;
-  4b. trace  — the slice's MOR GSM and full-order GSM once more, warm,
-               under torch.profiler (CPU and CUDA activities) with
-               PhaseTimer(trace=True): one JSON line per phase range
-               ("projection base", "projection", "reduced sweep", "gsm";
-               "full-order sweep", "gsm") with its wall time, the device's
-               busy time and idle share, kernel launches and five heaviest
-               kernels, then K1-K3's totals, whose counts must equal their
-               launch counters and which must run inside "full-order
-               sweep"; no CUDA activity fails the phase; the slice's bars;
   5. entry   — the flagship forward step (`morfem_tpu_torch/entry.py`, the
                counterpart of `__graft_entry__.entry`): seed solves,
                thin SVD, projection, reduced sweep, GSM, captured as CUDA
@@ -149,7 +140,7 @@ import warnings
 
 # seconds each phase may take before the watchdog ends the run
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
-          "trace": 120, "entry": 300, "panel": 300, "reduced_lu": 300, "serve": 900,
+          "entry": 300, "panel": 300, "reduced_lu": 300, "serve": 900,
           "matfree": 600, "general": 600, "krylov": 600, "complex": 900,
           "parallel": 600, "bench": 540}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
@@ -954,142 +945,6 @@ def slice_phase(dev, n_expected=3411, points=100):
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
     return counts, sys_, rm, gsm_full, x_full, t_full
-
-
-# the phases that the reference's mor_gsm and full_order_gsm record, in
-# their order, and the CUDA symbols of K1-K3 (K2: its split pass and GEMM)
-TRACE_RANGES = (("mor", "projection base"), ("mor", "projection"),
-                ("mor", "reduced sweep"), ("mor", "gsm"),
-                ("full", "full-order sweep"), ("full", "gsm"))
-K123_SYMBOLS = {"panel_factor": ("panel_factor_kernel",),
-                "mm_words": ("split_words_kernel", "mm_words_kernel"),
-                "gather_rows": ("gather_rows_kernel",)}
-
-
-def _busy_us(intervals, lo, hi):
-    """Length of the union of (start, end) intervals clipped to [lo, hi]."""
-    total, reach = 0.0, lo
-    for s, e in sorted(intervals):
-        s, e = max(s, reach), min(e, hi)
-        if e > s:
-            total += e - s
-            reach = e
-    return total
-
-
-def _symbol(name: str) -> str:
-    """A kernel's function name without its namespace, template arguments
-    and parameters (the K1-K3 symbols as CUPTI reports them)."""
-    return re.sub(r"<.*|\(.*", "", name.replace("(anonymous namespace)::",
-                                                "")).split(" ")[-1]
-
-
-def trace_phase(dev, sys_, smi):
-    """The slice's MOR and full-order runs once more (warm), under
-    torch.profiler with CPU and CUDA activities and PhaseTimer(trace=True):
-    per phase range its wall time, the device's busy time (union of the
-    kernel, memcpy and memset intervals inside it), idle share, kernel
-    launches and five heaviest kernels (by function name, template
-    instances summed); then K1-K3's totals, held to their launch
-    counters."""
-    import os
-    import tempfile
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from morfem_tpu_torch import MorfemConfig, PhaseTimer
-    from morfem_tpu_torch.apps.waveguide import full_order_gsm, mor_gsm
-    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from morfem_tpu_torch.ops.panel_lu import (
-        reset_sweep_counters, solve_sweep_panel,
-    )
-
-    cfg = MorfemConfig(error_threshold=1e-10)
-    timers = {"mor": PhaseTimer(trace=True, device=dev),
-              "full": PhaseTimer(trace=True, device=dev)}
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    reset_sweep_counters()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        gsm_mor, _, _ = mor_gsm(sys_, cfg, timers["mor"])
-        gsm_full = full_order_gsm(sys_, cfg, timers["full"])
-    counts = launch_counts()
-    escalations = solve_sweep_panel.escalations
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f)["traceEvents"]
-                      if e.get("ph") == "X"]
-    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e)
-              for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    spans = [(s, e) for s, e, _ in device]
-    kernels = [(s, e, _symbol(ev["name"])) for s, e, ev in device
-               if ev["cat"] == "kernel"]
-    check(len(kernels) > 0, "the profiler recorded no CUDA kernel (is "
-          "CUPTI missing?): no device breakdown")
-    names = {n for _, n in TRACE_RANGES}
-    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                     e["name"]) for e in events
-                    if e.get("cat") == "user_annotation"
-                    and e["name"] in names)
-    check([n for _, _, n in ranges] == [n for _, n in TRACE_RANGES],
-          f"phase ranges {[n for _, _, n in ranges]} are not "
-          f"{[n for _, n in TRACE_RANGES]}")
-    inside_full = {}
-    for (run, name), (lo, hi, _) in zip(TRACE_RANGES, ranges):
-        wall_s = timers[run].times[name]
-        busy_ms = _busy_us(spans, lo, hi) / 1e3
-        mine = [(e - s, k) for s, e, k in kernels if lo <= s < hi]
-        per = {}  # by function name: template instances summed
-        for us, kname in mine:
-            c, t = per.get(kname, (0, 0.0))
-            per[kname] = (c + 1, t + us)
-        top = sorted(per.items(), key=lambda kv: -kv[1][1])[:5]
-        print("  trace " + json.dumps({
-            "run": run, "phase": name, "wall_s": wall_s,
-            "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
-            "kernel_launches": len(mine),
-            "top_kernels": [{"name": k, "count": c, "ms": t / 1e3}
-                            for k, (c, t) in top],
-        }), flush=True)
-        if name == "full-order sweep":
-            inside_full = per
-            full_busy_ms = busy_ms
-    totals = {}
-    for wrapper, symbols in K123_SYMBOLS.items():
-        for sym in symbols:
-            hits = [e - s for s, e, k in kernels if k == sym]
-            c_in, us_in = inside_full.get(sym, (0, 0.0))
-            totals[sym] = {"count": len(hits), "ms": sum(hits) / 1e3,
-                           "in_full_order_sweep": c_in,
-                           "in_full_order_sweep_ms": us_in / 1e3,
-                           "launch_counter": counts[wrapper]}
-            per_call = 2 if sym == "split_words_kernel" else 1
-            check(len(hits) == per_call * counts[wrapper],
-                  f"{sym}: {len(hits)} kernels in the trace, "
-                  f"{counts[wrapper]} {wrapper} launches counted")
-            check(c_in > 0, f"{sym} is not inside 'full-order sweep'")
-    k123_ms = sum(v["in_full_order_sweep_ms"] for v in totals.values())
-    all_busy_ms = _busy_us(spans, ranges[0][0], ranges[-1][1]) / 1e3
-    print("  trace " + json.dumps({
-        "k1_k3_totals": totals,
-        "k1_k3_share_of_full_order_sweep_busy": k123_ms / full_busy_ms,
-        "traced_span_ms": (ranges[-1][1] - ranges[0][0]) / 1e3,
-        "traced_device_busy_ms": all_busy_ms, "kernels": len(kernels),
-        "card": smi,
-    }), flush=True)
-    err = float((gsm_mor - gsm_full).abs().max())
-    print(f"  trace answers: max|S_mor-S_full|={err:.3e} "
-          f"block_pivot_escalations={escalations}", flush=True)
-    check(err < 1e-8, f"traced max|S_mor - S_full| = {err} >= 1e-8")
-    check(escalations == 0,
-          f"{escalations} traced chunks escalated to the full-pivot factor")
-    return counts
 
 
 def _library_gsm(sys_, count, cfg):
@@ -2506,9 +2361,6 @@ def main() -> int:
         rec = kernel_phase(dev)
     with phase("slice"):
         counts, sys_, rm, gsm_full, x_full, t_full = slice_phase(dev)
-    with phase("trace"):
-        for kname, n in trace_phase(dev, sys_, smi).items():
-            counts[kname] += n
     with phase("entry"):
         for kname, n in entry_phase(dev, sys_, gsm_full, smi).items():
             counts[kname] += n

@@ -235,13 +235,14 @@ def full_order_gsm(
 ) -> torch.Tensor:
     """Full-order ("No MOR") GSM sweep — the oracle path."""
     timer = timer or PhaseTimer(disabled=True)
-    with timer.phase("full-order sweep"):
-        x = solve_sweep(sys, config)
-    with timer.phase("gsm"):
-        _, cb = sys.coefficients(sys.domain)
-        gsm = generalized_scattering_matrix(
-            sys.domain, x, cb[:, None, None] * sys.b
-        )
+    with timer.span("full_order_gsm"):
+        with timer.phase("full-order sweep"):
+            x = solve_sweep(sys, config)
+        with timer.phase("gsm"):
+            _, cb = sys.coefficients(sys.domain)
+            gsm = generalized_scattering_matrix(
+                sys.domain, x, cb[:, None, None] * sys.b
+            )
     return gsm
 
 
@@ -253,15 +254,16 @@ def mor_gsm(
     """MOR GSM sweep → (gsm [I, M, M], trimmed ReducedModel, GreedyResult
     or None)."""
     timer = timer or PhaseTimer(disabled=True)
-    rm, greedy_result = build_reduced_model(sys, config, timer)
-    rm = rm.trim()
-    with timer.phase("reduced sweep"):
-        x_r = _run_sweep(rm, config)
-    with timer.phase("gsm"):
-        _, cb = rm.coefficients(rm.domain)
-        gsm = generalized_scattering_matrix(
-            rm.domain, x_r, cb[:, None, None] * rm.b_r
-        )
+    with timer.span("mor_gsm"):
+        rm, greedy_result = build_reduced_model(sys, config, timer)
+        rm = rm.trim()
+        with timer.phase("reduced sweep"):
+            x_r = _run_sweep(rm, config)
+        with timer.phase("gsm"):
+            _, cb = rm.coefficients(rm.domain)
+            gsm = generalized_scattering_matrix(
+                rm.domain, x_r, cb[:, None, None] * rm.b_r
+            )
     return gsm, rm, greedy_result
 
 

@@ -8,7 +8,12 @@ output/.
 
 Usage:
     python -m morfem_tpu_torch.examples.waveguide_sweep [--n 3411]
-        [--points 100] [--cpu] [--no-plots]
+        [--points 100] [--cpu] [--no-plots] [--spans PATH]
+
+``--spans PATH`` runs both sweeps with a trace-mode `PhaseTimer` and
+writes their spans (greedy iterations, snapshot solves, refinement steps,
+panel chunks, host syncs; `PhaseTimer.export`) to PATH as chrome-trace
+JSON.
 """
 
 import argparse
@@ -36,6 +41,8 @@ def main(argv=None):
     p.add_argument("--data-dir", default=None,
                    help="directory with Ct.npy/Tt.npy/WP.npy/kTE1.npy")
     p.add_argument("--threshold", type=float, default=1e-6)
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="write the run's spans as chrome-trace JSON")
     args = p.parse_args(argv)
     dev = torch.device("cpu" if args.cpu else "cuda")
 
@@ -47,15 +54,20 @@ def main(argv=None):
     sys_ = waveguide_system(freq, data, device=dev)
     cfg = MorfemConfig(error_threshold=args.threshold)
 
+    traced = args.spans is not None
+    full_timer = PhaseTimer(trace=True, device=dev) if traced else None
     t0 = time.perf_counter()
-    gsm_ref = full_order_gsm(sys_, cfg).cpu().numpy()
+    gsm_ref = full_order_gsm(sys_, cfg, full_timer).cpu().numpy()
     print(f"No MOR: {time.perf_counter() - t0:.3f} s")
-    timer = PhaseTimer(device=dev)
+    timer = full_timer or PhaseTimer(device=dev)
     t0 = time.perf_counter()
     gsm_mor, rm, greedy = mor_gsm(sys_, cfg, timer)
     gsm_mor = gsm_mor.cpu().numpy()
     print(f"MOR: {time.perf_counter() - t0:.3f} s")
     print(timer.report())
+    if traced:
+        timer.export(args.spans)
+        print(f"{len(timer.spans)} spans written to {args.spans}")
     print(f"basis size Nr = {rm.q.shape[1]}")
     err = np.linalg.norm(gsm_mor - gsm_ref, axis=(1, 2))
     print("GSM error mean:", err.mean())

@@ -250,32 +250,33 @@ def morfem(
     from morfem_tpu_torch.ops.complex_split import eval_coefficient_table
 
     timer = timer or PhaseTimer(disabled=True)
-    fns = (t_a0, t_a1, t_a2, t_b)
-    # one table per callable over the whole grid: the system is complex when
-    # an operator or b is, or when a coefficient's value has a nonzero
-    # imaginary part anywhere on the grid
-    grid = torch.as_tensor(domain).to(device=resolve_device(device),
-                                      dtype=torch.float64)
-    tables = [eval_coefficient_table(grid, fn) for fn in fns]
-    is_complex = any(_is_complex(x) for x in (a0, a1, a2, b)) or any(
-        t.is_complex() and bool((t.imag != 0).any()) for t in tables
-    )
-    if not is_complex:
-        fns = tuple(_real_valued(fn, t) for fn, t in zip(fns, tables))
-    if (any(sp.issparse(x) for x in (a0, a1, a2))
-            and a0.shape[0] > config.dense_cutoff):
-        if is_complex:
-            return _morfem_matfree_complex(domain, a0, a1, a2, b, tables,
-                                           fns, config, timer, device)
-        return _morfem_matfree(domain, a0, a1, a2, b, *fns, config, timer,
-                               device)
-    # a complex system is cast to complex128 once, in `AffineSystem.create`
-    sys = AffineSystem.create(domain, a0, a1, a2, b, *fns, device=device)
-    rm, _ = build_reduced_model(sys, config, timer)
-    rm = rm.trim()
-    with timer.phase("reduced sweep"):
-        x = _run_sweep(rm, config)
-    return x, rm.q, rm.r0, rm.r1, rm.r2, rm.b_r
+    with timer.span("morfem"):
+        fns = (t_a0, t_a1, t_a2, t_b)
+        # one table per callable over the whole grid: the system is complex
+        # when an operator or b is, or when a coefficient's value has a
+        # nonzero imaginary part anywhere on the grid
+        grid = torch.as_tensor(domain).to(device=resolve_device(device),
+                                          dtype=torch.float64)
+        tables = [eval_coefficient_table(grid, fn) for fn in fns]
+        is_complex = any(_is_complex(x) for x in (a0, a1, a2, b)) or any(
+            t.is_complex() and bool((t.imag != 0).any()) for t in tables
+        )
+        if not is_complex:
+            fns = tuple(_real_valued(fn, t) for fn, t in zip(fns, tables))
+        if (any(sp.issparse(x) for x in (a0, a1, a2))
+                and a0.shape[0] > config.dense_cutoff):
+            if is_complex:
+                return _morfem_matfree_complex(domain, a0, a1, a2, b, tables,
+                                               fns, config, timer, device)
+            return _morfem_matfree(domain, a0, a1, a2, b, *fns, config, timer,
+                                   device)
+        # a complex system is cast to complex128 once, in `AffineSystem.create`
+        sys = AffineSystem.create(domain, a0, a1, a2, b, *fns, device=device)
+        rm, _ = build_reduced_model(sys, config, timer)
+        rm = rm.trim()
+        with timer.phase("reduced sweep"):
+            x = _run_sweep(rm, config)
+        return x, rm.q, rm.r0, rm.r1, rm.r2, rm.b_r
 
 
 def _is_complex(x) -> bool:

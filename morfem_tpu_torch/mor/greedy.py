@@ -8,6 +8,11 @@ whole domain, (2) take a full-order snapshot at the worst point, (3)
 re-orthonormalize — until the max estimate drops below the threshold, the
 column budget runs out, the estimate turns NaN, or a new snapshot is
 numerically dependent on the basis (stagnation).
+
+Under a trace-mode `PhaseTimer` each pass of the loop is a
+``greedy.iteration`` span holding ``greedy.estimate``, ``greedy.solve``,
+``greedy.dependency`` and ``greedy.orthonormalize``, and each read of a
+value back to the host a ``host sync`` (`utils/timing.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from morfem_tpu_torch.ops.orthonormalize import (
 )
 from morfem_tpu_torch.ops.solve import solve_point
 from morfem_tpu_torch.system import AffineSystem
+from morfem_tpu_torch.utils.timing import host_read, span
 
 
 class GreedyResult(NamedTuple):
@@ -94,50 +100,59 @@ def greedy_basis(
     err_hist = torch.zeros((max_iters + 1, i), dtype=rdtype, device=dev)
     converged = done = False
     while not done and it <= max_iters:
-        # the first two iterations take the seed snapshots without the
-        # estimator (whose reduced solve is singular on an empty basis)
-        seed_phase = seeded < 2
-        if seed_phase:
-            err = torch.zeros(i, dtype=rdtype, device=dev)
-        else:
-            err = run_estimator(q, ncols)
-            err_hist[it] = err
-        err_max = float(err.max())
-        if not seed_phase:
-            converged = err_max < config.error_threshold
-        out_of_budget = ncols + m > k
-        poisoned = not seed_phase and err_max != err_max  # NaN
-        if seed_phase:
-            t_star = sys.domain[0] if seeded == 0 else sys.domain[-1]
-        else:
-            t_star = sys.domain[int(torch.argmax(err))]
-
-        independent = False
-        if not (converged or out_of_budget or poisoned):
-            x_new = solve_point(sys, t_star, config).to(q.dtype)
-            # stagnation guard: does any new column keep norm after
-            # projecting out span(Q) twice?
-            mask = column_mask(k, ncols, q.dtype, dev)
-            resid = project_out(q, mask, project_out(q, mask, x_new))
-            ratio = torch.linalg.norm(resid, dim=0) / torch.clamp(
-                torch.linalg.norm(x_new, dim=0), min=1e-300
-            )
-            independent = float(ratio.max()) > config.dependency_tolerance
-        if independent:
-            if config.orthonormalization == "svd":
-                q2 = q.clone()
-                q2[:, ncols:ncols + m] = x_new
-                q = orthonormalize_svd_masked(q2, ncols + m)
-                # count the columns the SVD actually produced (unit norm)
-                ncols = int(((q.abs() ** 2).sum(dim=0) > 0.5).sum())
+        with span("greedy.iteration"):
+            # the first two iterations take the seed snapshots without the
+            # estimator (whose reduced solve is singular on an empty basis)
+            seed_phase = seeded < 2
+            if seed_phase:
+                err = torch.zeros(i, dtype=rdtype, device=dev)
             else:
-                q, ncols = orthonormalize_append_cgs2(q, ncols, x_new)
-        stagnated = not seed_phase and not independent
-        done = converged or out_of_budget or poisoned or stagnated
-        if seed_phase:
-            seeded += 1
-        else:
-            it += 1
+                with span("greedy.estimate"):
+                    err = run_estimator(q, ncols)
+                err_hist[it] = err
+            err_max = host_read(float, err.max())
+            if not seed_phase:
+                converged = err_max < config.error_threshold
+            out_of_budget = ncols + m > k
+            poisoned = not seed_phase and err_max != err_max  # NaN
+            if seed_phase:
+                t_star = sys.domain[0] if seeded == 0 else sys.domain[-1]
+            else:
+                t_star = sys.domain[host_read(int, torch.argmax(err))]
+
+            independent = False
+            if not (converged or out_of_budget or poisoned):
+                with span("greedy.solve"):
+                    x_new = solve_point(sys, t_star, config).to(q.dtype)
+                with span("greedy.dependency"):
+                    # stagnation guard: does any new column keep norm
+                    # after projecting out span(Q) twice?
+                    mask = column_mask(k, ncols, q.dtype, dev)
+                    resid = project_out(q, mask, project_out(q, mask, x_new))
+                    ratio = torch.linalg.norm(resid, dim=0) / torch.clamp(
+                        torch.linalg.norm(x_new, dim=0), min=1e-300
+                    )
+                    independent = (host_read(float, ratio.max())
+                                   > config.dependency_tolerance)
+            if independent:
+                with span("greedy.orthonormalize"):
+                    if config.orthonormalization == "svd":
+                        q2 = q.clone()
+                        q2[:, ncols:ncols + m] = x_new
+                        q = orthonormalize_svd_masked(q2, ncols + m)
+                        # count the columns the SVD actually produced
+                        # (unit norm)
+                        ncols = host_read(
+                            int, ((q.abs() ** 2).sum(dim=0) > 0.5).sum())
+                    else:
+                        q, ncols = orthonormalize_append_cgs2(q, ncols,
+                                                              x_new)
+            stagnated = not seed_phase and not independent
+            done = converged or out_of_budget or poisoned or stagnated
+            if seed_phase:
+                seeded += 1
+            else:
+                it += 1
     return GreedyResult(
         q=q, ncols=ncols, iterations=it, converged=converged,
         err_hist=err_hist,

@@ -25,6 +25,7 @@ from morfem_tpu_torch.ops.solve import (
     refine_masked,
 )
 from morfem_tpu_torch.system import AffineSystem, Coefficient, _coefficients
+from morfem_tpu_torch.utils.timing import host_read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,16 +135,18 @@ def solve_reduced_batch(
                 config.refine_iterations, per_lane=False,
             )
         a_w, rhs_w = a.to(work), rhs.to(work)
-        tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(rhs_w))
+        tol = 10 * torch.finfo(work).eps * host_read(
+            float, torch.linalg.norm(rhs_w))
         r = rhs_w - a_w @ x
-        r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
+        r_norm = host_read(float, torch.linalg.norm(r))
+        r_prev, it = float("inf"), 0
         while (
             r_norm > tol and r_norm < 0.95 * r_prev
             and it < config.refine_iterations
         ):
             x = x + torch.linalg.lu_solve(lu, piv, r.to(fd)).to(work)
             r = rhs_w - a_w @ x
-            r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
             it += 1
     return x
 

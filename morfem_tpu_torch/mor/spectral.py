@@ -24,10 +24,11 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.mor.reduced import ReducedModel
 from morfem_tpu_torch.ops.orthonormalize import column_mask
+from morfem_tpu_torch.utils.timing import host_read
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    return host_read(t.detach().cpu).numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,8 +91,9 @@ def prepare_spectral(
 ) -> SpectralModel:
     """Diagonalize a two-term reduced pencil (R1 must be ~zero)."""
     _reject_unsupported(rm, config, quadratic=False)
-    r1_norm = float(torch.linalg.norm(rm.r1))
-    scale = float(torch.linalg.norm(rm.r0) + torch.linalg.norm(rm.r2))
+    r1_norm = host_read(float, torch.linalg.norm(rm.r1))
+    scale = host_read(float,
+                      torch.linalg.norm(rm.r0) + torch.linalg.norm(rm.r2))
     if r1_norm > 1e-12 * max(scale, 1e-300):
         raise ValueError(
             "spectral sweep requires a two-term pencil (r1 == 0); "

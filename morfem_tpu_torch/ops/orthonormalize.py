@@ -13,6 +13,8 @@ from typing import Tuple
 
 import torch
 
+from morfem_tpu_torch.utils.timing import host_read
+
 
 def column_mask(k: int, ncols, dtype=torch.float32, device=None):
     """[K] mask: 1 for columns < ncols, else 0."""
@@ -72,11 +74,11 @@ def orthonormalize_append_cgs2(
     tiny = torch.finfo(q.real.dtype).tiny
     for j in range(new.shape[1]):
         v = new[:, j]
-        v0_norm = float(torch.linalg.norm(v))
+        v0_norm = host_read(float, torch.linalg.norm(v))
         mask = column_mask(k, nc, q.dtype, q.device)
         for _ in range(2):
             v = v - q @ ((q.conj().T @ v) * mask)
-        norm = float(torch.linalg.norm(v))
+        norm = host_read(float, torch.linalg.norm(v))
         if norm > max(1e-14 * v0_norm, tiny) and nc < k:
             q[:, nc] = v / norm
             nc += 1

@@ -32,6 +32,7 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.kernels import gather_rows, mm_words, panel_factor
 from morfem_tpu_torch.ops.solve import refine_masked
+from morfem_tpu_torch.utils.timing import host_read, span
 
 PANEL = 128
 _TRAILS = ("f32x6", "f32x3")
@@ -269,11 +270,13 @@ def _refine(x, residual, apply, tol: float, cap: int):
     ``_refine.iterations`` (a plain counter, like the kernels' launches).
     """
     r = residual(x)
-    r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
+    r_norm = host_read(float, torch.linalg.norm(r))
+    r_prev, it = float("inf"), 0
     while r_norm > tol and r_norm < 0.95 * r_prev and it < cap:
-        x = x + apply(r)
-        r = residual(x)
-        r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+        with span("refine.step"):
+            x = x + apply(r)
+            r = residual(x)
+            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
         it += 1
     _refine.iterations += it
     return x, r_norm
@@ -307,7 +310,8 @@ def solve_batch_panel(
             config.refine_iterations, per_lane=True,
         )
     a_w, b_w = a.to(work), b.to(work)
-    tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(b_w))
+    tol = 10 * torch.finfo(work).eps * host_read(float,
+                                                 torch.linalg.norm(b_w))
     x, _ = _refine(
         x, lambda x: b_w - a_w @ x, lambda r: panel_lu_apply(f, r).to(work),
         tol, config.refine_iterations,
@@ -328,7 +332,11 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     Plain counters, like the kernels' launches: ``escalations`` counts the
     chunks escalated to the full-pivot factor, and ``chunk_iterations``
     gets each chunk's refinement iterations (all its factors), appended in
-    order. `reset_sweep_counters` zeroes them.
+    order. `reset_sweep_counters` zeroes them. Under a trace-mode
+    `PhaseTimer` each chunk is a ``panel.chunk`` span, holding a
+    ``panel.factor`` and a ``panel.apply`` per factor tried, the
+    ``refine.step`` spans and, around the full-pivot retry,
+    ``panel.escalate`` (`utils/timing.py`).
     """
     from morfem_tpu_torch.ops.assembly import impulse_vector
 
@@ -352,10 +360,12 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
         a = torch.einsum("gp,pij->gij", c.to(torch.float32), ops32)
         rhs = impulse_vector(sys.b, cb)
         if not wide or cap <= 0:
-            f = panel_lu_factor(a, panel=config.panel_width)
-            return panel_lu_apply(f, rhs).to(work)
+            with span("panel.factor"):
+                f = panel_lu_factor(a, panel=config.panel_width)
+            with span("panel.apply"):
+                return panel_lu_apply(f, rhs).to(work)
         b_w = rhs.to(work)
-        b_norm = float(torch.linalg.norm(b_w))
+        b_norm = host_read(float, torch.linalg.norm(b_w))
         tol = 10 * torch.finfo(work).eps * b_norm
 
         def residual(x):
@@ -371,8 +381,10 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
             factor = panel_lu_factor_block if pivot == "block" else (
                 panel_lu_factor
             )
-            f = factor(a, trail=trail, panel=config.panel_width)
-            x = panel_lu_apply(f, rhs).to(work)
+            with span("panel.factor"):
+                f = factor(a, trail=trail, panel=config.panel_width)
+            with span("panel.apply"):
+                x = panel_lu_apply(f, rhs).to(work)
             return _refine(
                 x, residual, lambda r: panel_lu_apply(f, r).to(work), tol, cap
             )
@@ -389,13 +401,15 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
         # block under block pivoting) escalates too
         if not r_norm <= sound_tol:
             solve_sweep_panel.escalations += 1
-            x = factor_refine("f32x6", "full")[0]
+            with span("panel.escalate"):
+                x = factor_refine("f32x6", "full")[0]
         return x
 
     xs = []
     for ts in ts_all.split(chunk):
         before = _refine.iterations
-        xs.append(solve_chunk(ts))
+        with span("panel.chunk"):
+            xs.append(solve_chunk(ts))
         solve_sweep_panel.chunk_iterations.append(_refine.iterations - before)
     return torch.cat(xs)[:i_pts]
 

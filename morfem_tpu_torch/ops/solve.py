@@ -30,6 +30,7 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.assembly import assemble_at
 from morfem_tpu_torch.system import AffineSystem
+from morfem_tpu_torch.utils.timing import host_read, span
 
 _COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -109,14 +110,17 @@ def _refine_adaptive(a, b, x0, apply_factor, refine_iterations: int):
     work = torch.promote_types(a.dtype, b.dtype)
     a_w = a.to(work)
     b_w = b.to(work)
-    tol = 10 * torch.finfo(work).eps * float(torch.linalg.norm(b_w))
+    tol = 10 * torch.finfo(work).eps * host_read(float,
+                                                 torch.linalg.norm(b_w))
     x = x0
     r = b_w - a_w @ x
-    r_norm, r_prev, it = float(torch.linalg.norm(r)), float("inf"), 0
+    r_norm = host_read(float, torch.linalg.norm(r))
+    r_prev, it = float("inf"), 0
     while r_norm > tol and r_norm < 0.95 * r_prev and it < refine_iterations:
-        x = x + apply_factor(r)
-        r = b_w - a_w @ x
-        r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+        with span("refine.step"):
+            x = x + apply_factor(r)
+            r = b_w - a_w @ x
+            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
         it += 1
     return x
 
