@@ -9,11 +9,13 @@ Phases, each printing one progress line with its seconds and numbers:
   2. build   — the `nvcc` build of the CUDA kernels (one per source, run
                together, and a link), with the registers,
                shared memory and spills that ptxas reports per kernel;
-  3. kernels — each kernel (K1 panel_factor, K2 mm_words, K3 gather_rows)
-               against its plain PyTorch version on the card, at the panel
-               LU's shapes on the waveguide, with kernel, plain, library and
-               bound times (K1's library call: torch.linalg.lu_factor on the
-               block-pivot blocks; K2's: baddbmm / bmm); each K1 row names
+  3. kernels — each kernel (K1 panel_factor, K2 mm_words, K3 gather_rows,
+               K7 tri_inverse) against its plain PyTorch version on the
+               card, at the panel LU's shapes on the waveguide, with
+               kernel, plain, library and bound times (K1's library call:
+               torch.linalg.lu_factor on the block-pivot blocks; K2's:
+               baddbmm / bmm; K7's: the two solve_triangular calls it
+               replaced); each K1 row names
                its variant (cluster of 8 or 16 CTAs, lanes in shared or
                device memory); then K1-K3 once each at a batch of 65,536
                (past a grid dimension's limit), bit for bit;
@@ -154,6 +156,7 @@ REPLACES = {
     "gauss_jordan_sweep_solve": "morfem_tpu/ops/pallas/reduced_sweep.py:51",
     "banded_matvec_padded": "morfem_tpu/ops/pallas/banded_matvec.py:75",
     "bsr_matmul_f32": "morfem_tpu/ops/block_sparse.py:125",
+    "tri_inverse": "morfem_tpu/ops/panel_lu.py:85,127 (not a Pallas kernel)",
 }
 SOURCES = {
     "panel_factor": "morfem_tpu_torch/csrc/panel_factor.cu",
@@ -162,6 +165,7 @@ SOURCES = {
     "gauss_jordan_sweep_solve": "morfem_tpu_torch/csrc/reduced_sweep.cu",
     "banded_matvec_padded": "morfem_tpu_torch/csrc/banded_matvec.cu",
     "bsr_matmul_f32": "morfem_tpu_torch/csrc/block_sparse.cu",
+    "tri_inverse": "morfem_tpu_torch/csrc/tri_inverse.cu",
 }
 GRID_LIMIT = 65_535  # a grid's y and z dimensions: K1-K3 launch past it
 P_34K = 185  # N = 185² = 34,225: the reference's ~34k-DOF stress size
@@ -459,6 +463,7 @@ def kernel_phase(dev):
              library_ms=lib_ms, shape=[g, n, w, p], device_ms=dev_ms,
              library_device_ms=lib_dev_ms)
         del src, idx, idx64, out_k, out_p, out_64
+    _kernels_k7(dev, gen, keep)
     _kernels_past_grid_limit(dev, gen)
     _kernels_k4(dev, gen, keep)
     _kernels_k5(dev, gen, keep)
@@ -472,6 +477,92 @@ def kernel_phase(dev):
             rec[name]["variants"] = [[r["shape"], r["variant"]]
                                      for _, r in rows]
     return rec
+
+
+def _kernels_k7(dev, gen, keep):
+    """K7 against its plain version (two `solve_triangular` calls against
+    an identity, with `tril`/`triu`) at the panel LU's shapes: the
+    block-pivot factor's diagonal blocks [8, 384, 384] (the sweep's chunk)
+    and [20, 384, 384] (the bench's), contiguous, and the full-pivot
+    factor's [6, 27, 128, 128] view of lug [6, 3456, 3456] (the flagship
+    step's 6 seeds under factorization="panel"). Blocks: packed LU of
+    random matrices plus 2·√P·I. Gate: |T·X − I| within 4× the plain
+    version's, zero off the triangles. Per call, and on the device alone
+    beside the library pair (`solve_triangular` on built triangles)."""
+    import torch
+
+    from morfem_tpu_torch.ops.kernels import tri_inverse, tri_inverse_plain
+    from morfem_tpu_torch.ops.panel_lu import _diagonal_blocks
+
+    def blocks(b, p):
+        a = torch.randn((b, p, p), generator=gen, device=dev)
+        a += 2.0 * p**0.5 * torch.eye(p, device=dev)
+        return torch.linalg.lu_factor(a).LU.contiguous()  # column-major
+
+    def inv_err(lu, linv, uinv):
+        lu = lu.double().reshape(-1, *lu.shape[-2:])
+        eye = torch.eye(lu.shape[-1], dtype=torch.float64, device=dev)
+        lo, up = torch.tril(lu, -1) + eye, torch.triu(lu)
+        return max(float((lo @ linv.double().reshape(lu.shape) - eye)
+                         .abs().max()),
+                   float((up @ uinv.double().reshape(lu.shape) - eye)
+                         .abs().max()))
+
+    cases = (("[8,384,384] (block-pivot step)", (8, 384), None, True),
+             ("[20,384,384] (the bench's G)", (20, 384), None, False),
+             ("[6,27,128,128] view of lug [6,3456,3456] (flagship seeds)",
+              (6 * 27, 128), (6, 27), False))
+    for label, (b, p), view, principal in cases:
+        lu = blocks(b, p)
+        if view is not None:
+            lug = torch.zeros((view[0], view[1] * p, view[1] * p),
+                              device=dev)
+            lu_v = _diagonal_blocks(lug, p)
+            lu_v.copy_(lu.reshape(lu_v.shape))
+            lu = lu_v
+        linv, uinv = tri_inverse(lu)
+        ref = tri_inverse_plain(lu)
+        torch.cuda.synchronize()
+        err_k, err_p = inv_err(lu, linv, uinv), inv_err(lu, *ref)
+        check(err_k <= 4 * err_p + 1e-6,
+              f"K7 |T X - I| {err_k} > 4 x the plain's {err_p} at {label}")
+        check(bool((torch.triu(linv, 1) == 0).all()
+                   and (torch.tril(uinv, -1) == 0).all()),
+              f"K7 not triangular at {label}")
+        diff = max(float((k - r).abs().max()) for k, r in zip((linv, uinv),
+                                                               ref))
+        ms = cuda_ms(lambda: tri_inverse(lu), 20)
+        dev_ms = device_ms(lambda: tri_inverse(lu))
+        plain_ms = cuda_ms(lambda: tri_inverse_plain(lu), 5)
+        eye = torch.eye(p, device=dev)
+        lo = torch.tril(lu, -1) + eye
+        up = torch.triu(lu)
+        rhs = eye.expand_as(lo)
+
+        def pair():
+            torch.linalg.solve_triangular(lo, rhs, upper=False,
+                                          unitriangular=True)
+            torch.linalg.solve_triangular(up, rhs, upper=True)
+
+        lib_ms = cuda_ms(pair, 5)
+        lib_dev_ms = device_ms(pair, 5)
+        # both triangles: P³/3 operations (P³/6 FMA) each; the blocks
+        # read once, both inverses written once
+        b_ms, b_by = bound(4 * 3 * b * p * p, b * 2 * (p**3 / 3))
+        share = None if dev_ms is None else b_ms / dev_ms
+        print(f"  K7 tri_inverse {label}: strides={list(lu.stride())} "
+              f"max|X - X_plain|={diff:.3e} |TX-I| kernel={err_k:.3e} "
+              f"plain={err_p:.3e} kernel_ms={ms:.4f} (device "
+              f"{_fmt(dev_ms)}) plain_ms={plain_ms:.4f} library_ms="
+              f"{lib_ms:.4f} (two solve_triangular; device "
+              f"{_fmt(lib_dev_ms)}) bound_ms={b_ms:.5f} ({b_by}) share="
+              f"{'not measured' if share is None else f'{100 * share:.1f} %'}",
+              flush=True)
+        keep("tri_inverse", principal, max_abs_err=diff, ms=ms,
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib_ms, shape=list(lu.shape), device_ms=dev_ms,
+             library_device_ms=lib_dev_ms)
+        del lu, linv, uinv, ref, lo, up
 
 
 def _kernels_past_grid_limit(dev, gen, g=GRID_LIMIT + 1):
@@ -941,7 +1032,8 @@ def slice_phase(dev, n_expected=3411, points=100):
               flush=True)
         check(rel < 1e-9, f"spot check at f={float(t)}: {rel} >= 1e-9")
     print("  kernels " + json.dumps(counts), flush=True)
-    for name in ("panel_factor", "mm_words", "gather_rows"):
+    for name in ("panel_factor", "mm_words", "gather_rows",
+                 "tri_inverse"):
         check(counts[name] > 0,
               f"kernel {name} was not launched on the main path")
     return counts, sys_, rm, gsm_full, x_full, t_full
@@ -1100,7 +1192,8 @@ def entry_phase(dev, sys_, gsm_full, smi):
     d_p = float((gsm_p - gsm6).abs().max())
     print(f"  entry {label}: max|S_panel-S_default|={d_p:.3e}", flush=True)
     check(d_p < 1e-9, f"entry {label}: panel vs default step {d_p}")
-    for name in ("panel_factor", "mm_words", "gather_rows"):
+    for name in ("panel_factor", "mm_words", "gather_rows",
+                 "tri_inverse"):
         check(eager_counts[name] > 0,
               f"entry {label}: {name} not launched by the step")
         # the warm-up launches what the eager step launches, and the graph
@@ -1145,7 +1238,8 @@ def panel_phase(dev, sys_, gsm_full, smi):
           f"K3={counts['gather_rows']} max|S_mor-S_full|={err:.3e} ({smi})",
           flush=True)
     check(err < 1e-8, f"panel morfem(): max|S_mor - S_full| = {err} >= 1e-8")
-    for name in ("panel_factor", "mm_words", "gather_rows"):
+    for name in ("panel_factor", "mm_words", "gather_rows",
+                 "tri_inverse"):
         check(counts[name] > 0,
               f"panel morfem(): kernel {name} was not launched")
     return counts

@@ -3,9 +3,11 @@
 K1 `panel_factor`, K2 `mm_words` and K3 `gather_rows` replace the Pallas
 kernels of the panel LU; K4 `gauss_jordan_sweep_solve` the fused
 reduced-sweep kernel; K5 `banded_matvec_padded` and K6 `bsr_matmul_f32`
-the banded and block-sparse matvecs of the Krylov snapshot solves. Each
-wrapper takes its plain PyTorch version for a CPU tensor and launches its
-kernel for a CUDA tensor, counting launches in its ``launches`` attribute.
+the banded and block-sparse matvecs of the Krylov snapshot solves; K7
+`tri_inverse` the panel LU's diagonal-block inverses (batched matmuls in
+the JAX package, no Pallas kernel). Each wrapper takes its plain PyTorch
+version for a CPU tensor and launches its kernel for a CUDA tensor,
+counting launches in its ``launches`` attribute.
 """
 
 from morfem_tpu_torch.ops.kernels.banded_matvec import (
@@ -29,10 +31,14 @@ from morfem_tpu_torch.ops.kernels.row_gather import (
     gather_rows,
     gather_rows_plain,
 )
+from morfem_tpu_torch.ops.kernels.tri_inverse import (
+    tri_inverse,
+    tri_inverse_plain,
+)
 
 KERNELS = (
     panel_factor, mm_words, gather_rows, gauss_jordan_sweep_solve,
-    banded_matvec_padded, bsr_matmul_f32,
+    banded_matvec_padded, bsr_matmul_f32, tri_inverse,
 )
 
 

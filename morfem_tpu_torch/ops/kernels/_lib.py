@@ -59,6 +59,8 @@ _SIGNATURES = {
     "morfem_banded_matvec": [_c_void_p, _c_int64, _c_void_p, _c_int,
                              _c_void_p, _c_int] + [_c_int] * 4 + [_c_void_p],
     "morfem_bsr_spmm": [_c_void_p] * 5 + [_c_int] * 2 + [_c_void_p],
+    "morfem_tri_inverse": [_c_void_p] * 3 + [_c_int] * 3 + [_c_int64] * 3
+    + [_c_void_p],
 }
 
 

@@ -1,21 +1,25 @@
 """Blocked panel LU over a batch of real systems — the full-order sweep's solver.
 
-Counterpart of `morfem_tpu/ops/panel_lu.py`, on the three hand-written
-CUDA kernels of ``ops/kernels``:
+Counterpart of `morfem_tpu/ops/panel_lu.py`, on four hand-written CUDA
+kernels of ``ops/kernels``:
 
   * right-looking blocked LU with partial pivoting and no row swaps; each
     panel is factored by K1 (`panel_factor`);
   * the pivot rows of each trailing block and the final permutation are
     gathered by K3 (`gather_rows`);
   * every O(N³) trailing update is one f32-true GEMM with the addend fused,
-    K2 (`mm_words`).
+    K2 (`mm_words`);
+  * the diagonal blocks of L and U are inverted together, K7
+    (`tri_inverse`).
 
 Rows are equilibrated to unit max first, and the block-pivot factor runs
 first with a residual-checked escalation of the whole chunk to the
 full-pivot factor, exactly as in the reference, so the port factors the
 same panels and its pivot sequences match. The diagonal blocks of L and U
-are inverted once (`torch.linalg.solve_triangular`) so that both
-triangular phases of the apply are batched matmuls.
+are inverted once per factor (per block step in the block-pivot factor;
+one K7 launch each time, a ``panel.invert`` span under a trace-mode
+`PhaseTimer`) so that both triangular phases of the apply are batched
+matmuls.
 
 The refinement residuals in `solve_sweep_panel` are plain float64
 matmuls against the three shared affine operators — one wide product
@@ -30,7 +34,12 @@ from typing import NamedTuple
 import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
-from morfem_tpu_torch.ops.kernels import gather_rows, mm_words, panel_factor
+from morfem_tpu_torch.ops.kernels import (
+    gather_rows,
+    mm_words,
+    panel_factor,
+    tri_inverse,
+)
 from morfem_tpu_torch.ops.solve import refine_masked
 from morfem_tpu_torch.utils.timing import host_read, span
 
@@ -67,18 +76,20 @@ def full_pivot_panel(n: int, panel: int) -> int:
     return panel
 
 
-def _unit_lower_inv(l: torch.Tensor) -> torch.Tensor:
-    """Inverse of batched unit-lower-triangular blocks."""
-    eye = torch.eye(l.shape[-1], dtype=l.dtype, device=l.device)
-    return torch.linalg.solve_triangular(
-        l, eye.expand_as(l), upper=False, unitriangular=True
-    )
+def _invert_diagonal(lu: torch.Tensor):
+    """(linv, uinv) of packed LU diagonal blocks [..., P, P] (K7)."""
+    with span("panel.invert"):
+        return tri_inverse(lu)
 
 
-def _upper_inv(u: torch.Tensor) -> torch.Tensor:
-    """Inverse of batched upper-triangular blocks (non-unit diagonal)."""
-    eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
-    return torch.linalg.solve_triangular(u, eye.expand_as(u), upper=True)
+def _diagonal_blocks(lug: torch.Tensor, panel: int) -> torch.Tensor:
+    """The P×P diagonal blocks of lug [G, Np, Np] as a [G, nb, P, P]
+    view (no copy)."""
+    g, np_, _ = lug.shape
+    s0, s1, s2 = lug.stride()
+    return lug.as_strided((g, np_ // panel, panel, panel),
+                          (s0, panel * (s1 + s2), s1, s2),
+                          lug.storage_offset())
 
 
 class PanelLUFactors(NamedTuple):
@@ -165,14 +176,7 @@ def panel_lu_factor(
 
     perm = torch.cat(pivs, dim=1)
     lug = gather_rows(torch.cat(done, dim=2), perm)
-    diag = torch.stack(
-        [lug[:, k * panel:(k + 1) * panel, k * panel:(k + 1) * panel]
-         for k in range(nb)],
-        dim=1,
-    )  # [G, nb, P, P]
-    eye = torch.eye(panel, dtype=torch.float32, device=a.device)
-    linv = _unit_lower_inv(torch.tril(diag, -1) + eye)
-    uinv = _upper_inv(torch.triu(diag))
+    linv, uinv = _invert_diagonal(_diagonal_blocks(lug, panel))
     return PanelLUFactors(lug, perm, linv, uinv, dinv, n)
 
 
@@ -196,7 +200,6 @@ def panel_lu_factor_block(
     nb = np_ // panel
     rest, dinv = _equilibrate(a, np_)
 
-    eye = torch.eye(panel, dtype=torch.float32, device=a.device)
     ones_avail = torch.ones((g, panel), dtype=torch.float32, device=a.device)
     out = torch.zeros((g, np_, np_), dtype=torch.float32, device=a.device)
     linvs, uinvs, pivs = [], [], []
@@ -206,8 +209,7 @@ def panel_lu_factor_block(
         # the block-local factor never uses C̃, so K1 does not compute it
         fac_t, _c, piv, _av = panel_factor(d_t, ones_avail, want_ct=False)
         lu_d = gather_rows(fac_t.transpose(1, 2).contiguous(), piv)
-        linv = _unit_lower_inv(torch.tril(lu_d, -1) + eye)
-        uinv = _upper_inv(torch.triu(lu_d))
+        linv, uinv = _invert_diagonal(lu_d)
         if k > 0:
             # the local pivot reorders this band's already-written L21
             # rows (LAPACK's laswp over the factored left part)
@@ -334,9 +336,9 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     gets each chunk's refinement iterations (all its factors), appended in
     order. `reset_sweep_counters` zeroes them. Under a trace-mode
     `PhaseTimer` each chunk is a ``panel.chunk`` span, holding a
-    ``panel.factor`` and a ``panel.apply`` per factor tried, the
-    ``refine.step`` spans and, around the full-pivot retry,
-    ``panel.escalate`` (`utils/timing.py`).
+    ``panel.factor`` (with its ``panel.invert`` spans) and a
+    ``panel.apply`` per factor tried, the ``refine.step`` spans and,
+    around the full-pivot retry, ``panel.escalate`` (`utils/timing.py`).
     """
     from morfem_tpu_torch.ops.assembly import impulse_vector
 

@@ -26,6 +26,8 @@ from morfem_tpu_torch.ops.kernels import (
     panel_factor,
     panel_factor_plain,
     reset_launch_counts,
+    tri_inverse,
+    tri_inverse_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -1006,7 +1008,7 @@ def test_flagship_step_captures_and_replays(cuda, cfg_kw):
     out = captured(*scaled)
     for o, e in zip(out, step(*scaled)):
         assert float((o - e).abs().max()) <= 1e-12
-    kernels = ("panel_factor", "mm_words", "gather_rows")
+    kernels = ("panel_factor", "mm_words", "gather_rows", "tri_inverse")
     if cfg_kw is None or cfg_kw["factorization"] == "gj":
         assert all(counts[k] == 0 for k in kernels)
     else:
@@ -1106,3 +1108,177 @@ def test_morfem_phases_add_up_to_its_wall_time(cuda):
     assert set(timer.times) == {"projection base", "projection",
                                 "reduced sweep"}
     assert 0.0 <= wall - phases < 5e-3, (wall, timer.times)
+
+
+# ----------------------------------------------------------------- K7
+
+
+def _lu_blocks(b, p, dev, seed, shift=2.0):
+    """Packed LU blocks [b, p, p] (partial pivoting, f32) of random
+    matrices plus shift·√p·I."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((b, p, p), generator=gen, device=dev)
+    a += shift * p**0.5 * torch.eye(p, device=dev)
+    return torch.linalg.lu_factor(a).LU.contiguous()  # it is column-major
+
+
+def _inverse_error(lu, linv, uinv):
+    """max |L·linv − I| and max |U·uinv − I| in f64, over the batch."""
+    lu = lu.double().reshape(-1, *lu.shape[-2:])
+    eye = torch.eye(lu.shape[-1], dtype=torch.float64, device=lu.device)
+    lo = torch.tril(lu, -1) + eye
+    up = torch.triu(lu)
+    el = (lo @ linv.double().reshape(lu.shape) - eye).abs().amax()
+    eu = (up @ uinv.double().reshape(lu.shape) - eye).abs().amax()
+    return float(el), float(eu)
+
+
+def _check_k7(lu):
+    """K7 on `lu` against its plain version: one launch, contiguous
+    outputs shaped as lu, zero off the triangles, unit diagonal of linv,
+    inverse errors within 4× the plain version's."""
+    reset_launch_counts()
+    linv, uinv = tri_inverse(lu)
+    torch.cuda.synchronize()
+    assert launch_counts()["tri_inverse"] == 1
+    assert linv.shape == uinv.shape == lu.shape
+    assert linv.is_contiguous() and uinv.is_contiguous()
+    ref = tri_inverse_plain(lu)
+    assert bool(torch.isfinite(linv).all() and torch.isfinite(uinv).all())
+    assert torch.equal(torch.triu(linv, 1), torch.zeros_like(linv))
+    assert torch.equal(torch.tril(uinv, -1), torch.zeros_like(uinv))
+    assert bool((torch.diagonal(linv, dim1=-2, dim2=-1) == 1).all())
+    got_l, got_u = _inverse_error(lu, linv, uinv)
+    ref_l, ref_u = _inverse_error(lu, *ref)
+    # FP32 substitution in another order than cuBLAS's trsm
+    assert got_l <= 4 * ref_l + 1e-6, (got_l, ref_l)
+    assert got_u <= 4 * ref_u + 1e-6, (got_u, ref_u)
+    return linv, uinv, ref
+
+
+@pytest.mark.parametrize("p", [384, 128])
+@pytest.mark.parametrize("b", [8, 20, 6 * 27])
+@pytest.mark.parametrize("layout", ["contiguous", "lug_view"])
+def test_tri_inverse_kernel(cuda, p, b, layout):
+    """K7 at the panel LU's shapes: the block-pivot factor's [G, 384, 384]
+    (G = 8, the sweep's chunk, and 20, the bench's), the full-pivot
+    factor's [G·27, 128, 128] (G = 6: the flagship step's seeds), both as
+    contiguous blocks and as the diagonal-block view of a factor lug
+    [G, nb·P, nb·P] that the full-pivot factor passes."""
+    from morfem_tpu_torch.ops.panel_lu import _diagonal_blocks
+
+    blocks = _lu_blocks(b, p, cuda, seed=b + p)
+    if layout == "contiguous":
+        lu = blocks
+    else:
+        g, nb = (6, 27) if (b, p) == (6 * 27, 128) else (b // 2, 2)
+        gen = torch.Generator(device=cuda).manual_seed(b)
+        lug = 0.1 * torch.randn((g, nb * p, nb * p), generator=gen,
+                                device=cuda)
+        lu = _diagonal_blocks(lug, p)
+        lu.copy_(blocks.reshape(g, nb, p, p))
+        assert not lu.is_contiguous()
+    linv, uinv, ref = _check_k7(lu)
+    # well conditioned blocks: the two routes agree closely
+    for k, r in zip((linv, uinv), ref):
+        assert float((k - r).abs().max()) <= 1e-4 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("b,p", [(3, 32), (5, 96), (2, 1472), (2, 1504)])
+def test_tri_inverse_kernel_edge_shapes(cuda, b, p):
+    """One tile a side; an odd number of tiles; the widest block whose
+    column strip fits in shared memory (1472) and one past it, whose
+    strip lives in the output in device memory."""
+    _check_k7(_lu_blocks(b, p, cuda, seed=p, shift=4.0))
+
+
+def _waveguide_chunk(dev, g=8):
+    """The full-order sweep's first chunk A(t) [g, N, N] (f32) on the
+    bundled N=3411 waveguide."""
+    from morfem_tpu_torch.apps.waveguide import (
+        load_waveguide_data, waveguide_system,
+    )
+
+    data = load_waveguide_data(n_fallback=3411)
+    sys_ = waveguide_system(np.linspace(3e9, 5e9, 100), data, device=dev)
+    ops = torch.stack([o.to(torch.float32) for o in sys_.operators()])
+    ops = (ops + ops.transpose(1, 2)) * 0.5
+    c, _ = sys_.coefficients(sys_.domain[:g])
+    return torch.einsum("gp,pij->gij", c.to(torch.float32), ops)
+
+
+@pytest.mark.parametrize("pivot", ["block", "full"])
+def test_tri_inverse_kernel_on_the_waveguide_factors(cuda, monkeypatch,
+                                                     pivot):
+    """K7 on the blocks that the waveguide's own chunk factors hand it:
+    each block step's [8, 384, 384] of the block-pivot factor, and the
+    full-pivot factor's [8, 27, 128, 128] view of lug."""
+    from morfem_tpu_torch.ops import panel_lu as plu
+
+    seen = []
+    real = plu.tri_inverse
+
+    def recorded(lu):
+        seen.append(lu.clone())
+        return real(lu)
+
+    monkeypatch.setattr(plu, "tri_inverse", recorded)
+    a = _waveguide_chunk(cuda)
+    if pivot == "block":
+        plu.panel_lu_factor_block(a, panel=384)
+    else:
+        plu.panel_lu_factor(a, panel=128)
+    assert len(seen) == (9 if pivot == "block" else 1)
+    for lu in seen:
+        _check_k7(lu)
+
+
+def _nonfinite_rows(x):
+    return (~torch.isfinite(x)).any(dim=-1)
+
+
+@pytest.mark.parametrize("p,rows", [(384, [200]), (384, [0, 383]),
+                                    (128, [31, 32]), (128, [77])])
+def test_tri_inverse_kernel_zero_pivot(cuda, p, rows):
+    """A zero pivot makes U's inverse non-finite, as the triangular solve
+    does, in the same rows; every entry that needs the pivot is
+    non-finite (rows up to it, columns from it) and nothing below it.
+    L's inverse stays finite."""
+    lu = _lu_blocks(4, p, cuda, seed=p)
+    for r in rows:
+        lu[1, r, r] = 0.0
+    linv, uinv = tri_inverse(lu)
+    ref_l, ref_u = tri_inverse_plain(lu)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(linv).all())
+    for i in (0, 2, 3):
+        assert bool(torch.isfinite(uinv[i]).all())
+    bad = ~torch.isfinite(uinv[1])
+    r0 = max(rows)
+    assert bool(bad[:r0 + 1, r0:].all())
+    assert not bool(bad[r0 + 1:].any())
+    assert torch.equal(_nonfinite_rows(uinv), _nonfinite_rows(ref_u))
+    # K7 poisons only what needs the pivot: within the plain's set
+    assert not bool((bad & torch.isfinite(ref_u[1])).any())
+
+
+def test_tri_inverse_kernel_captures_in_a_cuda_graph(cuda):
+    """K7 inside a CUDA graph: it synchronises nothing, the replay equals
+    the eager call, and again after new blocks are copied in."""
+    lu = _lu_blocks(8, 384, cuda, seed=1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tri_inverse(lu)  # warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out = tri_inverse(lu)
+    assert launch_counts()["tri_inverse"] == 1
+    for seed in (1, 2):
+        lu.copy_(_lu_blocks(8, 384, cuda, seed=seed))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = tri_inverse(lu)
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])

@@ -26,6 +26,7 @@ from morfem_tpu_torch.ops.kernels import (
     panel_factor,
     panel_factor_plain,
     reset_launch_counts,
+    tri_inverse,
 )
 from morfem_tpu_torch.ops.kernels.fused_mm import (
     mm_words_split_plain,
@@ -298,8 +299,9 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     bsr_matmul_f32(torch.ones((32, 128)), torch.zeros(1, dtype=torch.int32),
                    torch.zeros(1, dtype=torch.int32), 1, 1, 20, 32, 128,
                    torch.ones((20, 2)))
+    tri_inverse(x)
     assert launch_counts() == {
         "panel_factor": 0, "mm_words": 0, "gather_rows": 0,
         "gauss_jordan_sweep_solve": 0, "banded_matvec_padded": 0,
-        "bsr_matmul_f32": 0,
+        "bsr_matmul_f32": 0, "tri_inverse": 0,
     }
