@@ -19,7 +19,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig  # noqa: E402
 from morfem_tpu_torch.system import AffineSystem  # noqa: E402
-from morfem_tpu_torch.mor.api import build_reduced_model, morfem  # noqa: E402
+from morfem_tpu_torch.mor.api import (  # noqa: E402
+    MatfreeSystem,
+    build_reduced_model,
+    morfem,
+)
 from morfem_tpu_torch.mor.reduced import ReducedModel, project, sweep  # noqa: E402
 from morfem_tpu_torch.mor.greedy import GreedyResult, greedy_basis  # noqa: E402
 from morfem_tpu_torch.mor.equally import equally_distributed_basis  # noqa: E402

@@ -9,6 +9,10 @@ test_helpers.py + main.py): a 2-port waveguide, N = 3,411 DOF, swept over
 computed for all points at once in native complex128 (the reference's
 real Cayley form exists only because its chip has no complex128).
 
+`tiled_waveguide_system` prepares the upstream stress case, the waveguide
+tiled along a block diagonal (``fake_interpolate_bigger_sample.py``: 10×,
+N = 34,110), as a SciPy-sparse pencil for the matrix-free route.
+
 `load_waveguide_data` reads the bundled synthetic stand-in
 ``data/synthetic_cache/synthetic_wg_<N>.npz`` and never writes into the
 repository; other sizes are synthesized in memory (and cached only in a
@@ -228,6 +232,45 @@ def waveguide_system(
     )
 
 
+def tiled_waveguide_pencil(data: WaveguideData, rate: int):
+    """The waveguide tiled `rate` times along a block diagonal, as SciPy
+    sparse matrices: (C, 0, Γ = scaled T, B) with C and Γ placed `rate`
+    times on the diagonal and the port columns B stacked `rate` times
+    (upstream ``fake_interpolate_bigger_sample.py``). Γ is tiled in its
+    own slot: the upstream script tiles C there too, which would make the
+    pencil a scalar multiple of C."""
+    import scipy.sparse as sp
+
+    if rate < 1:
+        raise ValueError(f"rate must be ≥ 1, got {rate}")
+    c = sp.csr_matrix(np.asarray(data.c_mat, np.float64))
+    gamma = sp.csr_matrix(np.asarray(data.t_mat, np.float64) * GAMMA_SCALE)
+    c_t = sp.block_diag([c] * rate, format="csr")
+    gamma_t = sp.block_diag([gamma] * rate, format="csr")
+    b = np.tile(np.asarray(data.wp, np.float64) * B_SCALE, (rate, 1))
+    return c_t, sp.csr_matrix(c_t.shape), gamma_t, b
+
+
+def tiled_waveguide_system(
+    frequency_points, data: WaveguideData, rate: int,
+    config: MorfemConfig = DEFAULT_CONFIG, device="cuda",
+    timer: Optional[PhaseTimer] = None,
+):
+    """The tiled waveguide (`tiled_waveguide_pencil`) prepared once for
+    the matrix-free route (`mor/api.py::MatfreeSystem`, with `config`'s
+    ``symmetrize`` and ``band_max_half``); `mor_gsm` sweeps it, re-gridded
+    by ``with_domain``."""
+    from morfem_tpu_torch.mor.api import MatfreeSystem
+
+    kte = data.kte
+    return MatfreeSystem.create(
+        np.asarray(frequency_points, np.float64),
+        *tiled_waveguide_pencil(data, rate),
+        t_b=lambda t: b_coefficient(t, kte), config=config, device=device,
+        timer=timer,
+    )
+
+
 def full_order_gsm(
     sys: AffineSystem,
     config: MorfemConfig = DEFAULT_CONFIG,
@@ -247,12 +290,13 @@ def full_order_gsm(
 
 
 def mor_gsm(
-    sys: AffineSystem,
+    sys,
     config: MorfemConfig = DEFAULT_CONFIG,
     timer: Optional[PhaseTimer] = None,
 ):
-    """MOR GSM sweep → (gsm [I, M, M], trimmed ReducedModel, GreedyResult
-    or None)."""
+    """MOR GSM sweep of an `AffineSystem` (the dense route) or a prepared
+    `MatfreeSystem` (the matrix-free route) → (gsm [I, M, M], trimmed
+    ReducedModel, GreedyResult or None)."""
     timer = timer or PhaseTimer(disabled=True)
     with timer.span("mor_gsm"):
         rm, greedy_result = build_reduced_model(sys, config, timer)

@@ -12,6 +12,11 @@ SciPy-sparse operators with N > ``config.dense_cutoff``, the matrix-free
 route (`_morfem_matfree`: RCM-banded direct snapshot solves, or the
 general-sparsity route after a `BandwidthError`).
 
+A pencil that is swept again and again is prepared once as a
+`MatfreeSystem` (the counterpart of the dense route's `AffineSystem`) and
+handed to `build_reduced_model`, `morfem(domain, system)` or the
+waveguide's `mor_gsm`.
+
 Complex systems (complex operators or b, or a coefficient callable whose
 values have a nonzero imaginary part anywhere on the grid) take the same
 two routes: the dense pipeline runs natively in complex128, and the
@@ -21,8 +26,9 @@ matrix-free one runs on the interleaved real 2N embedding
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +40,7 @@ from morfem_tpu_torch.mor.reduced import ReducedModel, project, sweep
 from morfem_tpu_torch.device import resolve_device
 from morfem_tpu_torch.system import (
     AffineSystem,
+    Coefficient,
     _default_t_a0,
     _default_t_a1,
     _default_t_a2,
@@ -76,15 +83,18 @@ def _warn_if_unconverged(result: GreedyResult) -> None:
 
 
 def build_reduced_model(
-    sys: AffineSystem,
+    sys: Union[AffineSystem, "MatfreeSystem"],
     config: MorfemConfig = DEFAULT_CONFIG,
     timer: Optional[PhaseTimer] = None,
 ) -> Tuple[ReducedModel, Optional[GreedyResult]]:
     """Build the projection basis and project the system.
 
     Returns the padded ReducedModel and, for the greedy strategy, the
-    GreedyResult with the error history.
+    GreedyResult with the error history. A `MatfreeSystem` takes the
+    matrix-free route (`build_matfree`: the model comes back trimmed).
     """
+    if isinstance(sys, MatfreeSystem):
+        return build_matfree(sys, config, timer)
     timer = timer or PhaseTimer(disabled=True)
     greedy_result = None
     with timer.phase("projection base"):
@@ -124,81 +134,133 @@ def _run_sweep(rm: ReducedModel, config: MorfemConfig):
         return sweep(rm, config)
 
 
-def _morfem_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
-                    timer, device):
-    """Matrix-free `morfem()` for large sparse systems (same contract):
-    `_build_matfree`, then the reduced sweep. The returned q is in the
-    CALLER's row order."""
-    rm, q = _build_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b,
-                           config, timer, device)
-    with timer.phase("reduced sweep"):
-        x = _run_sweep(rm, config)
-    return x, q, rm.r0, rm.r1, rm.r2, rm.b_r
+@dataclasses.dataclass(frozen=True)
+class MatfreeSystem:
+    """A large sparse pencil prepared once for the matrix-free route.
 
-
-def _build_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
-                   timer, device, extra_terms=()):
-    """The matrix-free reduced model, trimmed, and its basis in the
-    CALLER's row order (the model's own q is in the operator's order).
-
-    Operator selection as in the reference: RCM-reordered banded direct
-    solves when the sparsity is band-recoverable (`banded_via_rcm`), else
-    (`BandwidthError`) the exact operator with the truncated-band shifted
-    preconditioner (`truncated_band_via_rcm` → `GeneralSparseOperator`).
-
-    ``extra_terms``: ((matrix, coefficient callable), …) operator addends
-    beyond the 3-term pencil; the complex-coefficient route passes the
-    embedded imaginary parts here, and they reach the reduced model as
-    ``r_extra``.
+    The counterpart of the dense route's `AffineSystem`: `create` runs the
+    operator setup of `morfem()`'s matrix-free route once (RCM reordering,
+    banding and the copies to the device, `banded_via_rcm`; after a
+    `BandwidthError` the exact operator with its truncated-band
+    preconditioner, `truncated_band_via_rcm`), and `with_domain` re-grids
+    it. `build_reduced_model`, `morfem()` and `apps/waveguide.py::mor_gsm`
+    take it, so a call costs the greedy, the projection, the sweep and the
+    GSM only, and gives what `morfem()` gives on the same matrices, bit for
+    bit. Real pencils only.
     """
-    import scipy.sparse as sp
 
+    domain: torch.Tensor  # [I]
+    op: Any  # BandedAffineOperator, or GeneralSparseOperator
+    perm: torch.Tensor  # [N]: the operator's row i is the caller's perm[i]
+    b: torch.Tensor  # [N, M] in the operator's row order
+    mats: tuple  # the SciPy addends as given (projected by the
+    # equally-distributed basis)
+    t_a0: Coefficient
+    t_a1: Coefficient
+    t_a2: Coefficient
+    t_b: Coefficient
+    t_extra: Tuple[Coefficient, ...] = ()
+    symmetrize: bool = True  # the operator knobs it was made with
+    band_max_half: int = 2048
+
+    @classmethod
+    def create(cls, domain, a0, a1, a2, b, t_a0=_default_t_a0,
+               t_a1=_default_t_a1, t_a2=_default_t_a2, t_b=_default_t_b,
+               config: MorfemConfig = DEFAULT_CONFIG, device="cuda",
+               timer: Optional[PhaseTimer] = None, extra_terms=()):
+        """Prepare the pencil with `config`'s operator knobs
+        (``symmetrize``, ``band_max_half``). ``extra_terms``: ((matrix,
+        coefficient callable), …) addends beyond the 3-term pencil; the
+        complex route passes the embedded imaginary parts here, and they
+        reach the reduced model as ``r_extra``."""
+        import scipy.sparse as sp
+
+        from morfem_tpu_torch.ops.block_tridiag import (
+            BandwidthError,
+            banded_via_rcm,
+            truncated_band_via_rcm,
+        )
+        from morfem_tpu_torch.ops.sparse import GeneralSparseOperator
+
+        timer = timer or PhaseTimer(disabled=True)
+        dev = resolve_device(device)
+        domain = torch.as_tensor(domain, device=dev)
+        b = torch.as_tensor(b.toarray() if sp.issparse(b) else b, device=dev)
+        if b.ndim == 1:
+            b = b[:, None]
+        mats = [m if sp.issparse(m) else sp.csr_matrix(np.asarray(m))
+                for m in (a0, a1, a2, *(m for m, _ in extra_terms))]
+        with timer.phase("operator setup"):
+            try:
+                op, perm = banded_via_rcm(
+                    *mats, symmetrize=config.symmetrize,
+                    max_half=config.band_max_half, device=dev,
+                )
+            except BandwidthError:
+                # non-band-recoverable sparsity: exact applies with the
+                # truncated-band shifted-direct preconditioner; only the
+                # bandwidth rejection lands here
+                exact_op, band_op, perm, dropped = truncated_band_via_rcm(
+                    *mats, symmetrize=config.symmetrize,
+                    band_half=config.band_max_half, device=dev,
+                )
+                op = GeneralSparseOperator(exact_op, band_op, dropped=dropped)
+            b_op = b[perm]
+        return cls(domain=domain, op=op, perm=perm, b=b_op, mats=tuple(mats),
+                   t_a0=t_a0, t_a1=t_a1, t_a2=t_a2, t_b=t_b,
+                   t_extra=tuple(fn for _, fn in extra_terms),
+                   symmetrize=config.symmetrize,
+                   band_max_half=config.band_max_half)
+
+    @property
+    def n(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.b.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.b.device
+
+    def with_domain(self, domain) -> "MatfreeSystem":
+        return dataclasses.replace(
+            self, domain=torch.as_tensor(domain, device=self.device))
+
+
+def build_matfree(sys: MatfreeSystem, config: MorfemConfig = DEFAULT_CONFIG,
+                  timer: Optional[PhaseTimer] = None):
+    """The matrix-free reduced model, trimmed, with its basis in the
+    CALLER's row order, and the GreedyResult (None for the
+    equally-distributed basis)."""
     from morfem_tpu_torch.mor.equally import seed_indices
     from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree
-    from morfem_tpu_torch.ops.block_tridiag import (
-        BandwidthError,
-        banded_via_rcm,
-        truncated_band_via_rcm,
-    )
     from morfem_tpu_torch.ops.sparse import (
-        GeneralSparseOperator,
         sparse_project,
         sparse_snapshot_basis,
     )
 
-    dev = resolve_device(device)
-    domain = torch.as_tensor(domain, device=dev)
-    b = torch.as_tensor(b.toarray() if sp.issparse(b) else b, device=dev)
-    if b.ndim == 1:
-        b = b[:, None]
-    t_extra = tuple(fn for _, fn in extra_terms)
-    mats = [m if sp.issparse(m) else sp.csr_matrix(np.asarray(m))
-            for m in (a0, a1, a2, *(m for m, _ in extra_terms))]
-    with timer.phase("operator setup"):
-        try:
-            op, perm = banded_via_rcm(
-                *mats, symmetrize=config.symmetrize,
-                max_half=config.band_max_half, device=dev,
-            )
-        except BandwidthError:
-            # non-band-recoverable sparsity: exact applies with the
-            # truncated-band shifted-direct preconditioner; only the
-            # bandwidth rejection lands here
-            exact_op, band_op, perm, dropped = truncated_band_via_rcm(
-                *mats, symmetrize=config.symmetrize,
-                band_half=config.band_max_half, device=dev,
-            )
-            op = GeneralSparseOperator(exact_op, band_op, dropped=dropped)
-        b_op = b[perm]
+    if (config.symmetrize, config.band_max_half) != (sys.symmetrize,
+                                                     sys.band_max_half):
+        raise ValueError(
+            "the matrix-free system was prepared with symmetrize="
+            f"{sys.symmetrize}, band_max_half={sys.band_max_half}; prepare "
+            "it again with this config's")
+    timer = timer or PhaseTimer(disabled=True)
+    domain, op, perm, b_op = sys.domain, sys.op, sys.perm, sys.b
+    t_a0, t_a1, t_a2, t_b, t_extra = (sys.t_a0, sys.t_a1, sys.t_a2, sys.t_b,
+                                      sys.t_extra)
+    gres = None
     with timer.phase("projection base"):
         if config.use_equally_distributed:
             idx = seed_indices(int(domain.shape[0]), config)
             q_op = sparse_snapshot_basis(
-                mats, b_op, domain, idx, (t_a0, t_a1, t_a2, *t_extra, t_b),
-                config=config, op=op,
+                sys.mats, b_op, domain, idx,
+                (t_a0, t_a1, t_a2, *t_extra, t_b), config=config, op=op,
             )
             p = perm.cpu().numpy()
-            pmats = [m.tocsr()[p][:, p] for m in mats]
+            pmats = [m.tocsr()[p][:, p] for m in sys.mats]
             (r0, r1, r2, *r_extra), b_r = sparse_project(pmats, b_op, q_op)
             rm = ReducedModel(
                 domain=domain, q=q_op, r0=r0, r1=r1, r2=r2, b_r=b_r,
@@ -214,15 +276,24 @@ def _build_matfree(domain, a0, a1, a2, b, t_a0, t_a1, t_a2, t_b, config,
     rm = rm.trim()
     q_out = torch.zeros_like(rm.q)
     q_out[perm] = rm.q
-    return rm, q_out
+    return dataclasses.replace(rm, q=q_out), gres
+
+
+def _morfem_matfree(sys: MatfreeSystem, config, timer):
+    """Matrix-free `morfem()` (same contract): `build_matfree`, then the
+    reduced sweep. The returned q is in the CALLER's row order."""
+    rm, _ = build_matfree(sys, config, timer)
+    with timer.phase("reduced sweep"):
+        x = _run_sweep(rm, config)
+    return x, rm.q, rm.r0, rm.r1, rm.r2, rm.b_r
 
 
 def morfem(
     domain,
     a0,
-    a1,
-    a2,
-    b,
+    a1=None,
+    a2=None,
+    b=None,
     t_a0=_default_t_a0,
     t_a1=_default_t_a1,
     t_a2=_default_t_a2,
@@ -244,12 +315,26 @@ def morfem(
     Returns (x, q, a0_r, a1_r, a2_r, b_r) as tensors on `device`, padding
     trimmed; q is in the caller's row order; for a complex system all six
     are complex and ``einsum("nk,ikm->inm", q, x)`` gives the solutions.
+
+    ``morfem(domain, system)`` takes a `MatfreeSystem` prepared once from
+    the sparse pencil (its coefficients and device are the system's): the
+    operator setup is skipped, and the result is the one-shot call's on
+    the same matrices, bit for bit.
     """
     import scipy.sparse as sp
 
     from morfem_tpu_torch.ops.complex_split import eval_coefficient_table
 
     timer = timer or PhaseTimer(disabled=True)
+    if isinstance(a0, MatfreeSystem):
+        if any(x is not None for x in (a1, a2, b)) or (
+                t_a0, t_a1, t_a2, t_b) != (_default_t_a0, _default_t_a1,
+                                           _default_t_a2, _default_t_b):
+            raise ValueError("morfem(domain, system): a prepared "
+                             "MatfreeSystem carries its operators, b and "
+                             "coefficients")
+        with timer.span("morfem"):
+            return _morfem_matfree(a0.with_domain(domain), config, timer)
     with timer.span("morfem"):
         fns = (t_a0, t_a1, t_a2, t_b)
         # one table per callable over the whole grid: the system is complex
@@ -268,8 +353,10 @@ def morfem(
             if is_complex:
                 return _morfem_matfree_complex(domain, a0, a1, a2, b, tables,
                                                fns, config, timer, device)
-            return _morfem_matfree(domain, a0, a1, a2, b, *fns, config, timer,
-                                   device)
+            sys = MatfreeSystem.create(domain, a0, a1, a2, b, *fns,
+                                       config=config, device=device,
+                                       timer=timer)
+            return _morfem_matfree(sys, config, timer)
         # a complex system is cast to complex128 once, in `AffineSystem.create`
         sys = AffineSystem.create(domain, a0, a1, a2, b, *fns, device=device)
         rm, _ = build_reduced_model(sys, config, timer)
@@ -355,11 +442,12 @@ def _morfem_matfree_complex(domain, a0, a1, a2, b, tables, fns, config,
     # embedded real model is not swept (the reference sweeps it and
     # discards the result)
     tb = cb.abs() if cb.is_complex() else cb
-    _, q_e = _build_matfree(
+    sys = MatfreeSystem.create(
         domain, *mats, embed_rhs_interleaved(b), *lookups,
-        grid_lookup_coefficient(domain, tb), config, timer, device,
-        extra_terms=extra,
+        grid_lookup_coefficient(domain, tb), config=config, device=device,
+        timer=timer, extra_terms=extra,
     )
+    rm, _ = build_matfree(sys, config, timer)
     with timer.phase("complex reduced model"):
-        return finish_complex_model(deinterleave(q_e), *ops, b, domain,
+        return finish_complex_model(deinterleave(rm.q), *ops, b, domain,
                                     *fns)

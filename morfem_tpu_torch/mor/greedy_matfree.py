@@ -16,6 +16,13 @@ still above that but within 1e-4 is accepted with a warning (a basis
 vector needs span, not solver precision, and the estimator keeps
 measuring true residuals); anything worse stops the expansion with
 ``converged=False`` and ``failed_snapshot=True``.
+
+Under a trace-mode `PhaseTimer` the spans are the dense greedy's: each
+pass (a seed snapshot, or an estimate and its snapshot) is a
+``greedy.iteration`` holding ``greedy.estimate``, ``greedy.solve`` (with
+``greedy.escalate`` around the shifted-GMRES fallback),
+``greedy.dependency`` and ``greedy.orthonormalize``, and each read of a
+value back to the host is a ``host sync`` (`utils/timing.py`).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from morfem_tpu_torch.system import (
     _default_t_a2,
     _default_t_b,
 )
+from morfem_tpu_torch.utils.timing import host_read, span
 
 
 def _reduced_from_u_matfree(domain, q, ncols, u, b, coeffs) -> ReducedModel:
@@ -147,29 +155,31 @@ def greedy_basis_matfree(
         resid = project_out(project_out(x_new))
         ratio = torch.linalg.norm(resid, dim=0) / torch.clamp(
             torch.linalg.norm(x_new, dim=0), min=1e-300)
-        return float(ratio.max()) > config.dependency_tolerance
+        return host_read(float, ratio.max()) > config.dependency_tolerance
 
     res_limit = max(snapshot_tol * 100, 1e-8)
     accept_limit = 1e-4
 
     def solve_checked(t):
-        x, relres = snapshot(t)
-        worst = float(relres.max())
-        # NaN (Krylov breakdown) must escalate: NaN > x is False
-        if not (worst <= res_limit) and hasattr(op, "bands_w"):
-            x, relres = snapshot_shifted(t)
-            worst = float(relres.max())
+        with span("greedy.solve"):
+            x, relres = snapshot(t)
+            worst = host_read(float, relres.max())
+            # NaN (Krylov breakdown) must escalate: NaN > x is False
+            if not (worst <= res_limit) and hasattr(op, "bands_w"):
+                with span("greedy.escalate"):
+                    x, relres = snapshot_shifted(t)
+                    worst = host_read(float, relres.max())
         if not (worst <= accept_limit):
             warnings.warn(
-                f"greedy snapshot solve at t={float(t):.6g} reached only "
-                f"{worst:.1e} relative residual — stopping basis expansion "
-                "(strongly indefinite operator?)",
+                f"greedy snapshot solve at t={host_read(float, t):.6g} "
+                f"reached only {worst:.1e} relative residual — stopping "
+                "basis expansion (strongly indefinite operator?)",
                 stacklevel=3,
             )
             return x, False
         if not (worst <= res_limit):
             warnings.warn(
-                f"greedy snapshot at t={float(t):.6g} accepted at "
+                f"greedy snapshot at t={host_read(float, t):.6g} accepted at "
                 f"{worst:.1e} relative residual (> {res_limit:.0e}; "
                 "near-resonance conditioning) — basis span is still "
                 "useful; the error estimator tracks true residuals",
@@ -177,11 +187,15 @@ def greedy_basis_matfree(
             )
         return x, True
 
-    # seeds: snapshots at the domain ends
-    x0, ok0 = solve_checked(domain[0])
-    x1, ok1 = solve_checked(domain[-1])
-    q = torch.zeros((n, k), dtype=dtype, device=dev)
-    q[:, :2 * m] = orthonormalize_svd(torch.cat([x0, x1], dim=1).to(dtype))
+    # seeds: snapshots at the domain ends, a pass each
+    with span("greedy.iteration"):
+        x0, ok0 = solve_checked(domain[0])
+    with span("greedy.iteration"):
+        x1, ok1 = solve_checked(domain[-1])
+        with span("greedy.orthonormalize"):
+            q = torch.zeros((n, k), dtype=dtype, device=dev)
+            q[:, :2 * m] = orthonormalize_svd(
+                torch.cat([x0, x1], dim=1).to(dtype))
     ncols = 2 * m
 
     rdtype = torch.empty((), dtype=dtype).real.dtype
@@ -192,31 +206,39 @@ def greedy_basis_matfree(
     u = None
     u_ncols = None  # the basis width u was computed for
     while it <= max_iters:
-        err, u = estimate(q, ncols)
-        u_ncols = ncols
-        err_hist[it] = err.cpu()
-        it += 1
-        if not healthy:
-            break
-        if float(err.max()) < config.error_threshold:
-            converged = True
-            break
-        if ncols + m > k:
-            break
-        x_new, ok = solve_checked(domain[int(torch.argmax(err))])
-        if not ok:
-            healthy = False
-            break
-        x_new = x_new.to(dtype)
-        if not independent_of(q, ncols, x_new):
-            # dependent snapshot: the estimator floor is reached
-            break
-        q, ncols = orthonormalize_append_cgs2(q, ncols, x_new)
+        with span("greedy.iteration"):
+            with span("greedy.estimate"):
+                err, u = estimate(q, ncols)
+            u_ncols = ncols
+            # one read of the estimates: the stopping test and the pick
+            # are made on the host copy
+            err_hist[it] = err_h = host_read(err.cpu)
+            it += 1
+            if not healthy:
+                break
+            if float(err_h.max()) < config.error_threshold:
+                converged = True
+                break
+            if ncols + m > k:
+                break
+            x_new, ok = solve_checked(domain[int(torch.argmax(err_h))])
+            if not ok:
+                healthy = False
+                break
+            x_new = x_new.to(dtype)
+            with span("greedy.dependency"):
+                independent = independent_of(q, ncols, x_new)
+            if not independent:
+                # dependent snapshot: the estimator floor is reached
+                break
+            with span("greedy.orthonormalize"):
+                q, ncols = orthonormalize_append_cgs2(q, ncols, x_new)
 
     if u_ncols != ncols:
         # the loop ended right after an append: recompute U for the final
         # basis, or the last snapshot's columns would project to zero
-        _, u = estimate(q, ncols)
+        with span("greedy.estimate"):
+            _, u = estimate(q, ncols)
 
     result = GreedyResult(
         q=q, ncols=ncols, iterations=it, converged=converged,

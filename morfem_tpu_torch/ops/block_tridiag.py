@@ -36,6 +36,7 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.banded_matvec import combine_addends
 from morfem_tpu_torch.ops.complex_split import real_embedding
+from morfem_tpu_torch.utils.timing import host_read, span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -247,19 +248,26 @@ def banded_direct_solve(
     stops improving by 3 %, or after ``refine_iterations`` steps.
     ``factorization``: "scan" (block Thomas, the default) or "cr" (cyclic
     reduction).
+
+    Under a trace-mode `PhaseTimer` the factor (the combined band, its
+    blocks and their factorization) is a ``banded.factor`` span, each
+    refinement pass a ``banded.refine`` span, and each residual norm read
+    back a ``host sync``.
     """
     if factorization not in ("scan", "cr"):
         raise ValueError(f"factorization must be 'scan' or 'cr', got "
                          f"{factorization!r}")
-    band_t = combine_addends(c, op.bands_w)
-    b = block or max(128, _round_up(op.half, 128))
-    blocks = band_to_blocks(band_t, op.half, b)
-    if factorization == "cr":
-        factors = cyclic_reduction_factor(*blocks, op.n)
-        apply = cyclic_reduction_apply
-    else:
-        factors = block_tridiag_factor(*blocks, op.n)
-        apply = block_tridiag_apply
+    with span("banded.factor"):
+        band_t = combine_addends(c, op.bands_w)
+        b = block or max(128, _round_up(op.half, 128))
+        blocks = band_to_blocks(band_t, op.half, b)
+        if factorization == "cr":
+            factors = cyclic_reduction_factor(*blocks, op.n)
+            apply = cyclic_reduction_apply
+        else:
+            factors = block_tridiag_factor(*blocks, op.n)
+            apply = block_tridiag_apply
+        del band_t, blocks
     mv = op.bind_precise(c)
 
     def apply_factor(r):
@@ -267,17 +275,18 @@ def banded_direct_solve(
 
     x = apply_factor(rhs)
     b_norm = torch.linalg.norm(rhs, dim=0)
-    tot_norm = _norm(rhs)
+    tot_norm = host_read(_norm, rhs)
     abs_tol = 10 * torch.finfo(rhs.dtype).eps * tot_norm
     if tol is not None:
         abs_tol = max(abs_tol, tol * tot_norm)
     r = rhs - mv(x)
-    r_norm, r_prev, it = _norm(r), float("inf"), 0
+    r_norm, r_prev, it = host_read(_norm, r), float("inf"), 0
     while r_norm > abs_tol and r_norm < 0.97 * r_prev \
             and it < refine_iterations:
-        x = x + apply_factor(r)
-        r = rhs - mv(x)
-        r_prev, r_norm = r_norm, _norm(r)
+        with span("banded.refine"):
+            x = x + apply_factor(r)
+            r = rhs - mv(x)
+            r_prev, r_norm = r_norm, host_read(_norm, r)
         it += 1
     relres = torch.linalg.norm(r, dim=0) / torch.clamp(b_norm, min=1e-300)
     return x, relres, it
