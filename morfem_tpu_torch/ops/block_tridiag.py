@@ -95,8 +95,47 @@ class BlockTridiagFactors(NamedTuple):
     n: int  # true (unpadded) row count
 
 
+def _coupling_sets(l32: torch.Tensor, u32: torch.Tensor):
+    """Each u[i]'s nonzero rows and each l[i]'s nonzero columns, as index
+    tensors on the blocks' device ([nb] lists; a NaN counts as nonzero).
+
+    One batched reduction and one read of the 2·nb counts: a stable sort
+    puts each block's nonzero indices first, in order, so each set is a
+    slice of the sorted indices and no index is copied from the host.
+    """
+    nz = torch.stack([(u32 != 0).any(dim=2), (l32 != 0).any(dim=1)])
+    order = torch.sort(nz.to(torch.uint8), dim=-1, descending=True,
+                       stable=True).indices
+    counts = host_read(torch.Tensor.tolist, nz.sum(dim=-1))
+    return ([order[0, i, :k] for i, k in enumerate(counts[0])],
+            [order[1, i, :k] for i, k in enumerate(counts[1])])
+
+
+def _product_over(a: torch.Tensor, b: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """a @ b summed over the inner indices ``idx`` only (a's other columns
+    or b's other rows are zero); all of them: the plain product."""
+    if idx.numel() == a.shape[1]:
+        return a @ b
+    return a.index_select(1, idx) @ b.index_select(0, idx)
+
+
 def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     """Block-Thomas factorization in f32 (one dependent step per block).
+
+    Each coupling product runs over the coupling blocks' nonzero rows and
+    columns only: with R_i the nonzero rows of U_i and C_i the nonzero
+    columns of L_i,
+
+        S_i = D_i − L_i[:, C_i]·h_{i−1}[C_i, :],   g_i = S_i⁻¹,
+        h_i = g_i[:, R_i]·U_i[R_i, :]
+
+    (so h_{i−1} = S_{i−1}⁻¹·U_{i−1} is formed once). An RCM-ordered band
+    crosses each block edge in few rows, so the sums leave out exact
+    zeros only; a full set takes the plain product, an empty one none.
+    The share of the coupling kept, Σ|C_i| + Σ|R_i| over the 2·(nb−1)·b
+    of the full products (L_0 and U_{nb−1} lie outside the matrix), is
+    appended to ``block_tridiag_factor.coupling_share``.
 
     An exactly singular Schur complement does not raise: its inverse comes
     back non-finite (`torch.linalg.inv_ex`, as the reference's
@@ -107,13 +146,28 @@ def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     f32 = torch.float32
     l32, d32, u32 = l.to(f32), d.to(f32), u.to(f32)
     nb, b, _ = d32.shape
+    rows, cols = _coupling_sets(l32, u32)
     g = torch.empty_like(d32)
     h = torch.empty_like(d32)
     for i in range(nb):
-        s = d32[i] if i == 0 else d32[i] - l32[i] @ (g[i - 1] @ u32[i - 1])
+        c, r = cols[i], rows[i]
+        s = (d32[i] if i == 0 or not c.numel()
+             else d32[i] - _product_over(l32[i], h[i - 1], c))
         g[i] = torch.linalg.inv_ex(s)[0]
-        h[i] = g[i] @ u32[i]
+        h[i] = _product_over(g[i], u32[i], r) if r.numel() else 0.0
+    full = 2 * (nb - 1) * b
+    kept = sum(c.numel() for c in cols[1:]) + sum(
+        r.numel() for r in rows[:-1])
+    block_tridiag_factor.coupling_share.append(kept / full if full else 1.0)
     return BlockTridiagFactors(g=g, h=h, l=l32, n=n)
+
+
+block_tridiag_factor.coupling_share = []
+
+
+def reset_factor_counters() -> None:
+    """Empty the block-Thomas factor's list of coupling shares."""
+    block_tridiag_factor.coupling_share = []
 
 
 def block_tridiag_apply(factors: BlockTridiagFactors,

@@ -202,6 +202,105 @@ def test_band_to_blocks_and_block_thomas_match():
     assert np.abs(x - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+def _tiled_pencil(tiles=17, tile=45, seed=7):
+    """Dense symmetric tiles on a block diagonal (a0, 0, a2): the
+    tiled-waveguide structure at a small size."""
+    rng = np.random.default_rng(seed)
+
+    def tiled(scale, shift):
+        mats = []
+        for _ in range(tiles):
+            a = rng.standard_normal((tile, tile)) * scale / np.sqrt(tile)
+            mats.append((a + a.T) * 0.5 + np.eye(tile) * shift)
+        return sp.block_diag(mats, format="csr")
+
+    n = tiles * tile
+    return tiled(1.0, 3.0), sp.csr_matrix((n, n)), tiled(0.3, 0.0)
+
+
+def _full_product_factor(l, d, u):
+    """Block Thomas with every coupling product over all b rows and
+    columns, as the factor was first written."""
+    g, h = torch.empty_like(d), torch.empty_like(d)
+    for i in range(d.shape[0]):
+        s = d[i] if i == 0 else d[i] - l[i] @ (g[i - 1] @ u[i - 1])
+        g[i] = torch.linalg.inv_ex(s)[0]
+        h[i] = g[i] @ u[i]
+    return g, h
+
+
+# tiled: tiles of 45 factored in blocks of 48, so U_i's nonzero rows are
+# the last 3(i+1) mod 45 (U_14 is empty, U_15 lies outside the matrix)
+# and the share kept is 2·3·(1+…+14) / (2·15·48) = 0.4375; lower: two
+# entries more, unsymmetrised, so L_3's column set holds an index that
+# U_2's row set lacks and S_2⁻¹ couples it to them; full: blocks of the
+# half-bandwidth, so every coupling block is full
+@pytest.mark.parametrize("case,block,share", [("tiled", 48, 0.4375),
+                                              ("lower", 48, 631 / 1440),
+                                              ("full", 6, 1.0)])
+def test_block_thomas_forms_coupling_products_over_nonzero_rows(
+        case, block, share):
+    if case == "full":
+        a0, a1, a2 = _banded_pencil(n=300, half=6, seed=8, shift=2.0)
+    else:
+        a0, a1, a2 = _tiled_pencil()
+    if case == "lower":  # L_3's column 14; D_2's (14, 44) joins tiles
+        a0 = a0.tolil()
+        a0[150, 110] = a0[110, 140] = 0.5
+        a0 = a0.tocsr()
+    n = a0.shape[0]
+    sym = case != "lower"
+    op = tbm.BandedAffineOperator(a0, a1, a2, symmetrize=sym, device=CPU)
+    c = np.array([1.0, 0.0, -1.1])
+    band = tbm.combine_addends(torch.from_numpy(c), op.bands_w)
+    l, d, u = tbt.band_to_blocks(band, op.half, block)
+    tbt.reset_factor_counters()
+    fac = tbt.block_tridiag_factor(l, d, u, n)
+    assert tbt.block_tridiag_factor.coupling_share == [share]
+    tbt.reset_factor_counters()
+    assert tbt.block_tridiag_factor.coupling_share == []
+    f32 = torch.float32
+    g0, h0 = _full_product_factor(l.to(f32), d.to(f32), u.to(f32))
+    if case == "full":  # the plain products, in the same order: same bits
+        assert torch.equal(fac.g, g0) and torch.equal(fac.h, h0)
+    else:  # only exact zeros are left out of the sums: f32 rounding
+        for got, want in ((fac.g, g0), (fac.h, h0)):
+            assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        assert not fac.h[14].any() and not fac.h[-1].any()
+    rhs = np.random.default_rng(5).standard_normal((n, 2))
+    x = _np(tbt.block_tridiag_apply(fac, torch.from_numpy(rhs)))
+    x0 = _np(tbt.block_tridiag_apply(fac._replace(g=g0, h=h0),
+                                     torch.from_numpy(rhs)))
+    assert np.abs(x - x0).max() <= 1e-5 * np.abs(x0).max()
+    lj, dj, uj = jbt.band_to_blocks(jnp.asarray(_np(band)), op.half, block)
+    fac_j = jbt.block_tridiag_factor(lj, dj, uj, n)
+    xj = np.asarray(jbt.block_tridiag_apply(fac_j, jnp.asarray(rhs)))
+    assert np.abs(x - xj).max() <= 1e-5 * np.abs(xj).max()
+    a = (a0 - 1.1 * a2).toarray()
+    ref = np.linalg.solve((a + a.T) / 2 if sym else a, rhs)
+    assert np.abs(x - ref).max() <= 1e-5 * np.abs(ref).max()
+    x_r, relres, _ = tbt.banded_direct_solve(
+        op, torch.from_numpy(c), torch.from_numpy(rhs), block=block)
+    assert float(relres.max()) < 1e-13
+    assert np.abs(_np(x_r) - ref).max() <= 1e-12 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("coupled", [False, True])
+def test_singular_schur_complement_factors_to_non_finite(coupled):
+    # no raise: the refinement's residual turns NaN and callers escalate
+    d = torch.eye(8, dtype=torch.float64).repeat(2, 1, 1)
+    d[0, 7, 7] = 0.0
+    l, u = torch.zeros_like(d), torch.zeros_like(d)
+    if coupled:  # S_1 = D_1 − L_1·S_0⁻¹·U_0 over one row and column
+        u[0, 7, 0] = l[1, 0, 7] = 0.5
+    fac = tbt.block_tridiag_factor(l, d, u, 16)
+    assert not bool(torch.isfinite(fac.g[0]).all())
+    # decoupled, the second block stays finite; coupled, it is poisoned
+    assert bool(torch.isfinite(fac.g[1]).all()) != coupled
+    x = tbt.block_tridiag_apply(fac, torch.ones((16, 1), dtype=torch.float64))
+    assert not bool(torch.isfinite(x).all())
+
+
 def test_banded_direct_solve_matches():
     a0, a1, a2 = _banded_pencil(n=300, half=6, seed=4, shift=2.0)
     op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)
