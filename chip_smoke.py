@@ -94,21 +94,13 @@ Phases, each printing one progress line with its seconds and numbers:
                at N=4096, and dp=2 multi_geometry_mor on four waveguides
                against a serial loop. Two ranks share one card's SMs and
                memory: the phase's times show correctness and overhead,
-               not a speed-up;
- 13. bench   — the port's benchmark as a user runs it, `python -m
-               morfem_tpu_torch.bench` in a subprocess (the waveguide
-               headline: full-order sweep at solve_chunk=20 over the
-               dispatch-amortized device time of one spectral sweep, CUDA
-               graphs and events; then its extras): one JSON line, exit code
-               0, no error or skipped extra, the repo's accuracy bars on its
-               numbers, K1-K4 launched, and three of its full-order
-               solutions against f64 torch.linalg.solve.
+               not a speed-up.
 
 Each path's kernels are counted from zero over that path's run alone and
-must have launched (the parallel phase's ranks and the bench's process
-report theirs to this process, and the totals include them; the entry
-phase's panel step calls K1 with C̃ at G=6 inside a CUDA graph, the
-panel phase at G=1 and the bench at G=20, all outside escalation, and
+must have launched (the parallel phase's ranks report theirs to this
+process, and the totals include them; the entry phase's panel step calls
+K1 with C̃ at G=6 inside a CUDA graph and the panel phase at G=1, both
+outside escalation, and
 the entry phase counts its kernels in the eager step and in `capture`,
 whose graph records as many as its warm-up launches); the kernels phase
 (3) holds K4-K6 against their plain versions too, at the shapes these
@@ -144,7 +136,7 @@ import warnings
 BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
           "entry": 300, "panel": 300, "reduced_lu": 300, "serve": 900,
           "matfree": 600, "general": 600, "krylov": 600, "complex": 900,
-          "parallel": 600, "bench": 540}
+          "parallel": 600}
 H100_FP32_FLOPS = 67e12  # FP32 outside the tensor cores, SXM, 700 W
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12
@@ -181,6 +173,16 @@ GENERAL_P = 97
 
 class CheckFailed(RuntimeError):
     pass
+
+
+def nvidia_smi_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def check(ok: bool, what: str) -> None:
@@ -306,7 +308,7 @@ def kernel_phase(dev):
 
     # K1: the block-pivot diagonal blocks [8, 384, 384] without C̃ (the
     # path's call), the same with C̃, and the full-pivot panel [8, 128, 3456]
-    # with C̃ (escalation's chunk of 8); then the bench's batch of 20
+    # with C̃ (escalation's chunk of 8); then a batch of 20
     # (solve_chunk=20): the block-pivot blocks (160 CTAs, more than one
     # wave) and its full-pivot factor's panel; the entry phase's 6 and 16
     # seeds under factorization="panel", and one solve (G=1, morfem()'s
@@ -380,7 +382,7 @@ def kernel_phase(dev):
         ((8, 3072, 384, 3072), True, -1, False, True),
         ((8, 384, 384, 3072), False, 1, False, False),
         ((8, 3456, 128, 3328), True, 1, True, False),
-        ((20, 3072, 384, 3072), True, -1, False, False),  # the bench's G
+        ((20, 3072, 384, 3072), True, -1, False, False),  # solve_chunk=20
         ((6, 3456, 128, 3328), True, 1, True, False),  # the entry's seeds
     )
     for (g, m, k, n), with_t, sign, transposed, principal in cases:
@@ -483,7 +485,7 @@ def _kernels_k7(dev, gen, keep):
     """K7 against its plain version (two `solve_triangular` calls against
     an identity, with `tril`/`triu`) at the panel LU's shapes: the
     block-pivot factor's diagonal blocks [8, 384, 384] (the sweep's chunk)
-    and [20, 384, 384] (the bench's), contiguous, and the full-pivot
+    and [20, 384, 384] (solve_chunk=20), contiguous, and the full-pivot
     factor's [6, 27, 128, 128] view of lug [6, 3456, 3456] (the flagship
     step's 6 seeds under factorization="panel"). Blocks: packed LU of
     random matrices plus 2·√P·I. Gate: |T·X − I| within 4× the plain
@@ -509,7 +511,7 @@ def _kernels_k7(dev, gen, keep):
                          .abs().max()))
 
     cases = (("[8,384,384] (block-pivot step)", (8, 384), None, True),
-             ("[20,384,384] (the bench's G)", (20, 384), None, False),
+             ("[20,384,384] (solve_chunk=20)", (20, 384), None, False),
              ("[6,27,128,128] view of lug [6,3456,3456] (flagship seeds)",
               (6 * 27, 128), (6, 27), False))
     for label, (b, p), view, principal in cases:
@@ -630,8 +632,8 @@ def k3_inputs(dev, gen):
     every solve under factorization="panel") gathers 128 pivot rows of a
     trailing block and the final permutation.
     The last view starts one column off a 16-byte boundary, so K3 copies
-    it with 4-byte loads and stores instead of float4 ones. The bench's
-    sweep (solve_chunk=20) gathers the A12 rows of 20 blocks at a time."""
+    it with 4-byte loads and stores instead of float4 ones. A sweep at
+    solve_chunk=20 gathers the A12 rows of 20 blocks at a time."""
     import torch
 
     def rand(*shape):
@@ -643,7 +645,7 @@ def k3_inputs(dev, gen):
 
     g = 8
     yield "A12 rows [8,384,3072]", rand(g, 384, 3072), rows(g, 384, 384), True
-    yield ("A12 rows [20,384,3072] (the bench's G)", rand(20, 384, 3072),
+    yield ("A12 rows [20,384,3072] (solve_chunk=20)", rand(20, 384, 3072),
            rows(20, 384, 384), False)
     yield ("full-pivot rows [8,3456,3328]", rand(g, 3456, 3328),
            rows(g, 3456, 128), False)
@@ -669,10 +671,9 @@ def k3_inputs(dev, gen):
 
 def _kernels_k4(dev, gen, keep):
     """K4 at the waveguide's reduced size (K=40, M=2) for the I=100 build
-    grid and the 10,000-point serving grid (warp variant), at the bench's
-    reduced size (K=32, M=2: its I=10,000 re-sweep and I=4,000 three-term
-    sweep, the warp kernel's KP=32 instance), and at K=84, I=100 (block
-    variant)."""
+    grid and the 10,000-point serving grid (warp variant), at K=32, M=2
+    (an I=10,000 re-sweep and an I=4,000 three-term sweep, the warp
+    kernel's KP=32 instance), and at K=84, I=100 (block variant)."""
     import torch
 
     from morfem_tpu_torch.ops.kernels import (
@@ -2342,86 +2343,6 @@ def parallel_phase(dev, sys_, rm, x_full, smi, serve_points=10000,
     return total
 
 
-BENCH_BUDGET_S = 420  # the bench's own budget, inside the phase's
-
-
-def bench_phase(dev):
-    """The port's benchmark as a user runs it: ``python -m
-    morfem_tpu_torch.bench`` in a subprocess with its budget set to fit
-    this phase. Its one JSON line must carry no error and no skipped extra
-    and meet the repo's bars; three of its full-order solutions are held
-    against f64 `torch.linalg.solve`. Returns the bench's launch counts."""
-    import os
-    import tempfile
-    from pathlib import Path
-
-    import numpy as np
-    import torch
-
-    from morfem_tpu_torch.apps.waveguide import (
-        load_waveguide_data, waveguide_system,
-    )
-    from morfem_tpu_torch.ops.assembly import assemble_at
-
-    torch.cuda.empty_cache()  # the bench's process needs the card's memory
-    with tempfile.TemporaryDirectory() as tmp:
-        points = os.path.join(tmp, "points.npz")
-        proc = subprocess.run(
-            [sys.executable, "-m", "morfem_tpu_torch.bench",
-             "--check-points", points],
-            capture_output=True, text=True, timeout=BUDGET["bench"] - 30,
-            cwd=Path(__file__).resolve().parent,
-            env=dict(os.environ, BENCH_BUDGET_S=str(BENCH_BUDGET_S)),
-        )
-        for line in proc.stderr.splitlines():
-            print(f"  [bench] {line}", flush=True)
-        lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-        check(len(lines) == 1,
-              f"the bench printed {len(lines)} lines on stdout, not one")
-        print(f"  bench {lines[0]}", flush=True)
-        check(proc.returncode == 0, f"the bench exited {proc.returncode}")
-        res = json.loads(lines[0])
-        ex = res["extras"]
-        check("error" not in res, f"bench error: {res.get('error')}")
-        # error records hold their message (solution_rel_error is a number)
-        bad = [k for k, v in {**res, **ex}.items()
-               if k.endswith("_skipped")
-               or (k.endswith("_error") and isinstance(v, str))]
-        check(not bad, f"bench extras failed or skipped: {bad}")
-        check(res["metric"] == "reduced_sweep_speedup_vs_full_order"
-              and res["value"] > 0, f"bench headline {res['value']}")
-        check(ex["timer"] == "cuda_graph_events", f"bench timer {ex['timer']}")
-        check(ex["device"] == torch.cuda.get_device_name(0),
-              f"bench device {ex['device']}")
-        bars = (("gsm_error_max", 1e-8), ("k4_vs_lu_rel", 1e-9),
-                ("three_term_k4_vs_lu_rel", 1e-9),
-                ("full_spectral_vs_lu_rel", 1e-9),
-                ("banded_rel_error_vs_oracle", 1e-7),
-                ("gj_refined_solve_residual", 1e-9))
-        for key, bar in bars:
-            check(ex[key] < bar, f"bench {key} = {ex[key]} >= {bar}")
-        check(ex["escalations"] == 0,
-              f"bench: {ex['escalations']} chunks escalated")
-        launches = ex["launches"]
-        for kname in ("panel_factor", "mm_words", "gather_rows",
-                      "gauss_jordan_sweep_solve"):
-            check(launches[kname] > 0, f"the bench did not launch {kname}")
-
-        # the bench's full-order solutions at 3 points against f64 solves
-        with np.load(points) as z:
-            ts, xs = z["ts"], z["x"]
-    data = load_waveguide_data(n_fallback=ex["n_dof"])
-    sys_ = waveguide_system(ts, data, device=dev)
-    for t, x in zip(sys_.domain, torch.as_tensor(xs, device=dev)):
-        a, b = assemble_at(sys_, t, symmetrize=True)
-        xr = torch.linalg.solve(a, b)
-        rel = float(torch.linalg.norm(x - xr) / torch.linalg.norm(xr))
-        print(f"  bench spot f={float(t):.6e}: rel_err_vs_torch_solve="
-              f"{rel:.3e}", flush=True)
-        check(rel < 1e-9, f"bench spot check at f={float(t)}: {rel} >= 1e-9")
-    return launches
-
-
 def main() -> int:
     import torch
 
@@ -2430,7 +2351,6 @@ def main() -> int:
         return 1
     try:
         import morfem_tpu_torch  # noqa: F401
-        from morfem_tpu_torch.bench import nvidia_smi_line
         from morfem_tpu_torch.ops.kernels import _lib
     except ImportError as e:
         print(f"chip_smoke: the morfem_tpu_torch package is missing: {e}",
@@ -2476,13 +2396,7 @@ def main() -> int:
     with phase("parallel"):
         for kname, n in parallel_phase(dev, sys_, rm, x_full, smi).items():
             counts[kname] += n
-    with phase("bench"):
-        bench_launches = bench_phase(dev)
-    for kname in ("panel_factor", "mm_words", "gather_rows"):
-        counts[kname] += bench_launches[kname]
-    counts["gauss_jordan_sweep_solve"] = (
-        k4 + k4_matfree + k4_checkpoint
-        + bench_launches["gauss_jordan_sweep_solve"])
+    counts["gauss_jordan_sweep_solve"] = k4 + k4_matfree + k4_checkpoint
     counts["banded_matvec_padded"] += k5_complex
 
     kernels = []

@@ -139,7 +139,6 @@ def run_one(root: str, phases) -> None:
     import torch
 
     import chip_smoke as cs
-    from morfem_tpu_torch.bench import nvidia_smi_line
     from morfem_tpu_torch.ops.kernels import _lib
 
     def runner(name):
@@ -150,7 +149,7 @@ def run_one(root: str, phases) -> None:
     cs.BUDGET.setdefault("k1", 300)
     cs.BUDGET.setdefault("panel", 300)  # before the phase was added
     dev = torch.device("cuda")
-    smi = nvidia_smi_line()
+    smi = _own_chip_smoke().nvidia_smi_line()
     print(f"  {smi}", flush=True)
     with cs.phase("build"):
         _lib.load()

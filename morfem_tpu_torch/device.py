@@ -4,7 +4,7 @@ Entry points take ``device="cuda"`` by default: the port is written for an
 NVIDIA card, and the CPU runs only when the caller asks for it (the tests
 do). A CUDA request without a visible card raises instead of quietly
 running somewhere else. The CUDA-graph capture and the timers here are
-the ones the bench, the flagship step and `chip_smoke.py` share.
+the ones the flagship step and `chip_smoke.py` share.
 """
 
 from __future__ import annotations

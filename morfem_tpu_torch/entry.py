@@ -12,7 +12,7 @@ step (`flagship_step`, the reference's `_flagship_step`) is
 
 The reference runs it as one compiled program (`jax.jit`), whose
 refinement `while_loop`s never return to the host. Here every solve
-refines as a masked fixed trip (`ops/solve.py::refine_masked`) and nothing
+refines as a masked fixed trip (`ops/refine.py::refine_masked`) and nothing
 else synchronises the host, except the thin SVD: `torch.linalg.svd` checks
 its info on the host with every cuSOLVER algorithm, so no CUDA graph can hold
 it. `capture` therefore records the step as two graphs with the SVD run
@@ -178,8 +178,8 @@ def capture(fn, args: Sequence[torch.Tensor]) -> CapturedStep:
 
     `fn` is a step with ``stages``, as `FlagshipStep` is, and `args` are
     CUDA tensors. Each capturable stage is captured by
-    `device.capture_graph` (a warm-up on a side stream first, as for the
-    bench's chained sweeps) and replayed once, so that its outputs hold
+    `device.capture_graph` (a warm-up on a side stream first) and
+    replayed once, so that its outputs hold
     the values the next stage reads; a stage that cannot be captured runs
     eagerly between the graphs at every call, its results copied into the
     buffers the next graph reads. Any failure raises: there is no quiet

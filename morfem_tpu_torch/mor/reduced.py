@@ -19,13 +19,9 @@ import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.orthonormalize import column_mask
-from morfem_tpu_torch.ops.solve import (
-    factor_dtype_like,
-    lu_factor_each,
-    refine_masked,
-)
+from morfem_tpu_torch.ops.refine import host_norm, refine, refine_masked
+from morfem_tpu_torch.ops.solve import factor_dtype_like, lu_factor_each
 from morfem_tpu_torch.system import AffineSystem, Coefficient, _coefficients
-from morfem_tpu_torch.utils.timing import host_read
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +112,7 @@ def solve_reduced_batch(
 
     ``masked=True`` factors each system alone (`ops/solve.py::
     lu_factor_each`) and runs the refinement as the masked fixed trip
-    `ops/solve.py::refine_masked`, same rule: nothing synchronises the
+    `ops/refine.py::refine_masked`, same rule: nothing synchronises the
     host, so a CUDA graph can capture the call.
     """
     work = torch.promote_types(a.dtype, rhs.dtype)
@@ -128,26 +124,16 @@ def solve_reduced_batch(
         config.refine_iterations > 0
         and torch.finfo(work).bits > torch.finfo(fd).bits
     ):
+        def apply(r):
+            return torch.linalg.lu_solve(lu, piv, r.to(fd)).to(work)
+
         if masked:
-            return refine_masked(
-                a, rhs, x,
-                lambda r: torch.linalg.lu_solve(lu, piv, r.to(fd)).to(work),
-                config.refine_iterations, per_lane=False,
-            )
+            return refine_masked(a, rhs, x, apply, config.refine_iterations,
+                                 per_lane=False)
         a_w, rhs_w = a.to(work), rhs.to(work)
-        tol = 10 * torch.finfo(work).eps * host_read(
-            float, torch.linalg.norm(rhs_w))
-        r = rhs_w - a_w @ x
-        r_norm = host_read(float, torch.linalg.norm(r))
-        r_prev, it = float("inf"), 0
-        while (
-            r_norm > tol and r_norm < 0.95 * r_prev
-            and it < config.refine_iterations
-        ):
-            x = x + torch.linalg.lu_solve(lu, piv, r.to(fd)).to(work)
-            r = rhs_w - a_w @ x
-            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
-            it += 1
+        tol = 10 * torch.finfo(work).eps * host_norm(rhs_w)
+        x = refine(x, lambda x: rhs_w - a_w @ x, apply, tol,
+                   config.refine_iterations, norm=host_norm)[0]
     return x
 
 

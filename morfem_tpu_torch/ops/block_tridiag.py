@@ -36,6 +36,7 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.banded_matvec import combine_addends
 from morfem_tpu_torch.ops.complex_split import real_embedding
+from morfem_tpu_torch.ops.refine import refine
 from morfem_tpu_torch.utils.timing import host_read, span
 
 
@@ -333,15 +334,11 @@ def banded_direct_solve(
     abs_tol = 10 * torch.finfo(rhs.dtype).eps * tot_norm
     if tol is not None:
         abs_tol = max(abs_tol, tol * tot_norm)
-    r = rhs - mv(x)
-    r_norm, r_prev, it = host_read(_norm, r), float("inf"), 0
-    while r_norm > abs_tol and r_norm < 0.97 * r_prev \
-            and it < refine_iterations:
-        with span("banded.refine"):
-            x = x + apply_factor(r)
-            r = rhs - mv(x)
-            r_prev, r_norm = r_norm, host_read(_norm, r)
-        it += 1
+    x, r, _, it = refine(
+        x, lambda x: rhs - mv(x), apply_factor, abs_tol, refine_iterations,
+        norm=lambda r: host_read(_norm, r), stop=0.97,
+        span_name="banded.refine",
+    )
     relres = torch.linalg.norm(r, dim=0) / torch.clamp(b_norm, min=1e-300)
     return x, relres, it
 

@@ -40,8 +40,8 @@ from morfem_tpu_torch.ops.kernels import (
     panel_factor,
     tri_inverse,
 )
-from morfem_tpu_torch.ops.solve import refine_masked
-from morfem_tpu_torch.utils.timing import host_read, span
+from morfem_tpu_torch.ops.refine import host_norm, refine, refine_masked
+from morfem_tpu_torch.utils.timing import span
 
 PANEL = 128
 _TRAILS = ("f32x6", "f32x3")
@@ -265,28 +265,6 @@ def panel_lu_apply(f: PanelLUFactors, rhs: torch.Tensor) -> torch.Tensor:
     return x[:, :n]
 
 
-def _refine(x, residual, apply, tol: float, cap: int):
-    """Adaptive refinement loop shared by the batched panel solvers.
-
-    Returns (x, final residual norm). Counts its iterations in
-    ``_refine.iterations`` (a plain counter, like the kernels' launches).
-    """
-    r = residual(x)
-    r_norm = host_read(float, torch.linalg.norm(r))
-    r_prev, it = float("inf"), 0
-    while r_norm > tol and r_norm < 0.95 * r_prev and it < cap:
-        with span("refine.step"):
-            x = x + apply(r)
-            r = residual(x)
-            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
-        it += 1
-    _refine.iterations += it
-    return x, r_norm
-
-
-_refine.iterations = 0
-
-
 def solve_batch_panel(
     a: torch.Tensor,  # [G, N, N] working dtype (real)
     b: torch.Tensor,  # [G, N, M] working dtype
@@ -298,7 +276,7 @@ def solve_batch_panel(
     The refinement stops on the norm of the whole batch's residual.
     ``masked=True`` refines each system to its own stopping rule, as the
     reference's `vmap` over solves of one system does, through the masked
-    fixed trip `ops/solve.py::refine_masked`: nothing synchronises the
+    fixed trip `ops/refine.py::refine_masked`: nothing synchronises the
     host, so a CUDA graph can capture the call.
     """
     f = panel_lu_factor(a, panel=config.panel_width)
@@ -312,13 +290,12 @@ def solve_batch_panel(
             config.refine_iterations, per_lane=True,
         )
     a_w, b_w = a.to(work), b.to(work)
-    tol = 10 * torch.finfo(work).eps * host_read(float,
-                                                 torch.linalg.norm(b_w))
-    x, _ = _refine(
+    tol = 10 * torch.finfo(work).eps * host_norm(b_w)
+    return refine(
         x, lambda x: b_w - a_w @ x, lambda r: panel_lu_apply(f, r).to(work),
-        tol, config.refine_iterations,
-    )
-    return x
+        tol, config.refine_iterations, norm=host_norm,
+        span_name="refine.step",
+    )[0]
 
 
 def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
@@ -365,9 +342,9 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
             with span("panel.factor"):
                 f = panel_lu_factor(a, panel=config.panel_width)
             with span("panel.apply"):
-                return panel_lu_apply(f, rhs).to(work)
+                return panel_lu_apply(f, rhs).to(work), 0
         b_w = rhs.to(work)
-        b_norm = host_read(float, torch.linalg.norm(b_w))
+        b_norm = host_norm(b_w)
         tol = 10 * torch.finfo(work).eps * b_norm
 
         def residual(x):
@@ -387,32 +364,36 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
                 f = factor(a, trail=trail, panel=config.panel_width)
             with span("panel.apply"):
                 x = panel_lu_apply(f, rhs).to(work)
-            return _refine(
-                x, residual, lambda r: panel_lu_apply(f, r).to(work), tol, cap
+            x, _, r_norm, steps = refine(
+                x, residual, lambda r: panel_lu_apply(f, r).to(work), tol,
+                cap, norm=host_norm, span_name="refine.step",
             )
+            return x, r_norm, steps
 
         sound_tol = max(tol, 1e-9 * b_norm)
         first_trail = "f32x3" if config.panel_trail == "fast" else "f32x6"
         if config.panel_pivot == "block":
-            x, r_norm = factor_refine(first_trail, "block")
+            x, r_norm, steps = factor_refine(first_trail, "block")
         elif config.panel_trail == "fast":
-            x, r_norm = factor_refine("f32x3", "full")
+            x, r_norm, steps = factor_refine("f32x3", "full")
         else:
-            return factor_refine("f32x6", "full")[0]
+            x, _, steps = factor_refine("f32x6", "full")
+            return x, steps
         # "not <=" so that a NaN residual (an exactly singular diagonal
         # block under block pivoting) escalates too
         if not r_norm <= sound_tol:
             solve_sweep_panel.escalations += 1
             with span("panel.escalate"):
-                x = factor_refine("f32x6", "full")[0]
-        return x
+                x, _, more = factor_refine("f32x6", "full")
+            steps += more
+        return x, steps
 
     xs = []
     for ts in ts_all.split(chunk):
-        before = _refine.iterations
         with span("panel.chunk"):
-            xs.append(solve_chunk(ts))
-        solve_sweep_panel.chunk_iterations.append(_refine.iterations - before)
+            x, steps = solve_chunk(ts)
+        xs.append(x)
+        solve_sweep_panel.chunk_iterations.append(steps)
     return torch.cat(xs)[:i_pts]
 
 
@@ -421,7 +402,6 @@ solve_sweep_panel.chunk_iterations = []
 
 
 def reset_sweep_counters() -> None:
-    """Zero the refinement and escalation counters of the panel solvers."""
-    _refine.iterations = 0
+    """Zero the refinement and escalation counters of the panel sweep."""
     solve_sweep_panel.escalations = 0
     solve_sweep_panel.chunk_iterations = []

@@ -16,11 +16,12 @@ device go to the blocked panel LU (`ops/panel_lu.py`) under
 Gauss–Jordan inverse (`gj_solve_refined`, `ops/blocked_inverse.py`), point
 by point.
 
-The refinement is a host loop that reads one norm per iteration. Beside
-it, ``masked=True`` runs the masked fixed trip
-`refine_masked`, which synchronises nothing and so can be captured in a
-CUDA graph (the flagship step, `morfem_tpu_torch/entry.py`); it always
-runs ``refine_iterations`` passes, so the host loop stays the default.
+The refinement is `ops/refine.py::refine`, a host loop that reads one
+norm per iteration. Beside it, ``masked=True`` runs the masked fixed trip
+`ops/refine.py::refine_masked`, which synchronises nothing and so can be
+captured in a CUDA graph (the flagship step, `morfem_tpu_torch/entry.py`);
+it always runs ``refine_iterations`` passes, so the host loop stays the
+default.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.assembly import assemble_at
+from morfem_tpu_torch.ops.refine import host_norm, refine, refine_masked
 from morfem_tpu_torch.system import AffineSystem
-from morfem_tpu_torch.utils.timing import host_read, span
 
 _COMPLEX_OF = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -96,72 +97,11 @@ def lu_solve_refined(
         if masked:
             return refine_masked(a, b, x, apply_factor, refine_iterations,
                                  per_lane=True)
-        x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
-    return x
-
-
-def _refine_adaptive(a, b, x0, apply_factor, refine_iterations: int):
-    """Adaptive iterative refinement around any approximate solver.
-
-    Stops at working precision (10·ε·‖b‖), when an iteration fails to cut
-    the residual norm by 5 %, or at the cap — the reference's
-    `lax.while_loop` criterion, run as a host loop.
-    """
-    work = torch.promote_types(a.dtype, b.dtype)
-    a_w = a.to(work)
-    b_w = b.to(work)
-    tol = 10 * torch.finfo(work).eps * host_read(float,
-                                                 torch.linalg.norm(b_w))
-    x = x0
-    r = b_w - a_w @ x
-    r_norm = host_read(float, torch.linalg.norm(r))
-    r_prev, it = float("inf"), 0
-    while r_norm > tol and r_norm < 0.95 * r_prev and it < refine_iterations:
-        with span("refine.step"):
-            x = x + apply_factor(r)
-            r = b_w - a_w @ x
-            r_prev, r_norm = r_norm, host_read(float, torch.linalg.norm(r))
-        it += 1
-    return x
-
-
-def refine_masked(a, b, x0, apply_factor, refine_iterations: int,
-                  per_lane: bool):
-    """`_refine_adaptive` as a masked fixed trip: no host synchronisation.
-
-    All `refine_iterations` iterations run; each one's update is kept
-    only where the reference's `lax.while_loop` condition still holds
-    (``r_norm > tol``, ``r_norm < 0.95·r_prev``), decided on the device
-    with `torch.where`; the trip count is the loop's cap. Once the
-    condition fails the state is frozen, so x is the while-loop's x bit
-    for bit. ``per_lane``: each
-    [N, M] system of a batch [..., N, M] stops on its own norms and its
-    own tol (the reference's rule under `vmap`); else one norm over the
-    whole batch.
-    """
-    work = torch.promote_types(a.dtype, b.dtype)
-    a_w = a.to(work)
-    b_w = b.to(work)
-
-    def norm(v):
-        if per_lane:
-            return torch.linalg.norm(v, dim=(-2, -1))
-        return torch.linalg.norm(v)
-
-    tol = 10 * torch.finfo(work).eps * norm(b_w)
-    x = x0
-    r = b_w - a_w @ x
-    r_norm = norm(r)
-    r_prev = torch.full_like(r_norm, float("inf"))
-    for _ in range(refine_iterations):
-        go = (r_norm > tol) & (r_norm < 0.95 * r_prev)
-        x_new = x + apply_factor(r)
-        r_new = b_w - a_w @ x_new
-        go_v = go[..., None, None] if per_lane else go
-        x = torch.where(go_v, x_new, x)
-        r = torch.where(go_v, r_new, r)
-        r_prev = torch.where(go, r_norm, r_prev)
-        r_norm = torch.where(go, norm(r_new), r_norm)
+        a_w, b_w = a.to(work), b.to(work)
+        tol = 10 * torch.finfo(work).eps * host_norm(b_w)
+        x = refine(x, lambda x: b_w - a_w @ x, apply_factor, tol,
+                   refine_iterations, norm=host_norm,
+                   span_name="refine.step")[0]
     return x
 
 
@@ -210,7 +150,11 @@ def gj_solve_refined(
         if masked:
             return refine_masked(a, b, x, apply_factor, refine_iterations,
                                  per_lane=True)
-        x = _refine_adaptive(a, b, x, apply_factor, refine_iterations)
+        a_w, b_w = a.to(work), b.to(work)
+        tol = 10 * torch.finfo(work).eps * host_norm(b_w)
+        x = refine(x, lambda x: b_w - a_w @ x, apply_factor, tol,
+                   refine_iterations, norm=host_norm,
+                   span_name="refine.step")[0]
     return x
 
 

@@ -53,6 +53,7 @@ from morfem_tpu_torch.ops.block_tridiag import (
     block_tridiag_apply,
     block_tridiag_factor,
 )
+from morfem_tpu_torch.ops.refine import refine
 from morfem_tpu_torch.parallel.mesh import (
     all_gather_cat,
     all_reduce,
@@ -208,18 +209,15 @@ def spike_solve(
     def col_norms2(r_l):  # global column sums of squares over rows < n
         return all_reduce((r_l[:real_rows] ** 2).sum(dim=0), mesh, axis)
 
+    def global_norm(r_l):  # every rank reads the same all-reduced norm
+        return math.sqrt(float(all_reduce((r_l ** 2).sum(), mesh, axis)))
+
     b_norm = float(torch.linalg.norm(rhs))
     tol_abs = max(tol * b_norm, 10 * torch.finfo(work).eps * b_norm)
-    r = residual(x_loc)
-    r_norm = math.sqrt(float(all_reduce((r ** 2).sum(), mesh, axis)))
-    r_prev, it = math.inf, 0
-    while r_norm > tol_abs and r_norm < 0.95 * r_prev \
-            and it < refine_iterations:
-        x_loc = x_loc + spike_apply(r).to(work)
-        r = residual(x_loc)
-        r_prev = r_norm
-        r_norm = math.sqrt(float(all_reduce((r ** 2).sum(), mesh, axis)))
-        it += 1
+    x_loc, r, _, it = refine(
+        x_loc, residual, lambda r: spike_apply(r).to(work), tol_abs,
+        refine_iterations, norm=global_norm,
+    )
     x = all_gather_cat(x_loc, mesh, axis)[:n]
     relres = col_norms2(r).sqrt() / torch.clamp(
         torch.linalg.norm(rhs, dim=0), min=1e-300)

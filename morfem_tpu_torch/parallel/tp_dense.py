@@ -27,13 +27,13 @@ equilibrated to unit max first. The products are FP32 with TF32 off
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
 
 from morfem_tpu_torch.ops.blocked_inverse import gj_panel_factor
+from morfem_tpu_torch.ops.refine import refine
 from morfem_tpu_torch.parallel.mesh import (
     all_gather_cat,
     all_reduce,
@@ -185,20 +185,10 @@ def _column_matvec(a: torch.Tensor, mesh, axis: str):
     return mv
 
 
-def _refine(b, x, apply_inv, mv, refine_iterations: int):
-    """Adaptive refinement: stops at 10·ε·‖b‖, when an iteration fails to
-    cut the residual by 5 %, or at the cap. Every rank holds the same
-    all-reduced residual, so every rank takes the same decisions."""
-    tol = 10 * torch.finfo(b.dtype).eps * float(torch.linalg.norm(b))
-    r = b - mv(x)
-    r_norm, prev, it = float(torch.linalg.norm(r)), math.inf, 0
-    while r_norm > tol and r_norm < 0.95 * prev and it < refine_iterations:
-        x = x + apply_inv(r)
-        prev = r_norm
-        r = b - mv(x)
-        r_norm = float(torch.linalg.norm(r))
-        it += 1
-    return x
+def _host_norm(r: torch.Tensor) -> float:
+    # every rank holds the same all-reduced residual, so every rank takes
+    # the same decisions
+    return float(torch.linalg.norm(r))
 
 
 def tp_solve_dense(
@@ -223,9 +213,12 @@ def tp_solve_dense(
     x = tp_gj_apply(fac, b, mesh, axis=axis).to(b.dtype)
     if refine_iterations <= 0 or b.dtype != torch.float64:
         return x
-    return _refine(
-        b, x, lambda r: tp_gj_apply(fac, r, mesh, axis=axis).to(b.dtype),
-        _column_matvec(a, mesh, axis), refine_iterations)
+    mv = _column_matvec(a, mesh, axis)
+    tol = 10 * torch.finfo(b.dtype).eps * _host_norm(b)
+    return refine(
+        x, lambda x: b - mv(x),
+        lambda r: tp_gj_apply(fac, r, mesh, axis=axis).to(b.dtype), tol,
+        refine_iterations, norm=_host_norm)[0]
 
 
 def tp_solve_dense_compiled(
@@ -275,7 +268,9 @@ def tp_solve_dense_compiled(
 
     x = apply_inv(b_p)
     if refine_iterations > 0 and torch.finfo(work).bits > 32:
-        x = _refine(b_p, x, apply_inv, _column_matvec(a_p, mesh, axis),
-                    refine_iterations)
+        mv = _column_matvec(a_p, mesh, axis)
+        tol = 10 * torch.finfo(work).eps * _host_norm(b_p)
+        x = refine(x, lambda x: b_p - mv(x), apply_inv, tol,
+                   refine_iterations, norm=_host_norm)[0]
     x = x[:n0]
     return x[:, 0] if squeeze else x

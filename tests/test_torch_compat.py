@@ -272,7 +272,7 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "parallel.launch", "examples.multi_geometry",
             "examples.tp_dense_solve", "examples.large_n_sweep",
             "examples.banded_direct_greedy", "examples.general_sparse_mor",
-            "examples.random_matrix_experiment", "bench", "bench_banded"]
+            "examples.random_matrix_experiment"]
     code = (
         "import sys\n"
         + "".join(f"import morfem_tpu_torch.{m}\n" for m in mods)

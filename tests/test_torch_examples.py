@@ -99,20 +99,6 @@ def test_examples_default_to_the_card(name):
                  else ["--base-n", "64"])
 
 
-def test_bench_defaults_to_the_card(capsys):
-    """Without --cpu the bench runs on the card; without one it prints its
-    one JSON line with the error and returns 1."""
-    import json
-
-    from morfem_tpu_torch import bench
-
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present")
-    assert bench.main([]) == 1
-    lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 1 and "no CUDA device" in json.loads(lines[0])["error"]
-
-
 def test_dryrun_multichip_on_four_cpu_ranks():
     from morfem_tpu_torch.parallel.launch import dryrun_multichip
 

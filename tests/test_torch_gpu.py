@@ -941,43 +941,6 @@ def test_two_gloo_ranks_on_the_card_match_one_rank(cuda):
     assert not bool(torch.isfinite(fac.g[0]).all())
 
 
-def test_bench_chain_runs_as_a_cuda_graph(cuda):
-    """The bench's chain of spectral sweeps, captured as one CUDA graph:
-    its replay equals the eager chain (checked inside `chain_seconds`),
-    the slope between two chain lengths is a positive time, and the
-    eager chain on the card equals the chain on the CPU."""
-    from morfem_tpu_torch import bench
-    from morfem_tpu_torch.mor.reduced import ReducedModel
-    from morfem_tpu_torch.mor.spectral import prepare_spectral
-
-    rng = np.random.default_rng(11)
-    k, m = 6, 2
-    a = rng.standard_normal((k, k))
-    b = rng.standard_normal((k, m))
-    models = {}
-    for dev in ("cpu", cuda):
-        models[str(dev)] = prepare_spectral(ReducedModel(
-            domain=torch.linspace(1.0, 2.0, 12, dtype=torch.float64,
-                                  device=dev),
-            q=torch.eye(k, dtype=torch.float64, device=dev),
-            r0=_t(a + a.T, dev), r1=torch.zeros((k, k), dtype=torch.float64,
-                                                device=dev),
-            r2=_t(-(a @ a.T + k * np.eye(k)) * 1e-2, dev),
-            b_r=_t(b, dev), ncols=k,
-            t_a0=torch.ones_like, t_a1=lambda t: t, t_a2=lambda t: t**2,
-            t_b=lambda t: t,
-        ))
-    sm = models["cuda"]
-    grids = [sm.rm.domain + i * 1e-6 for i in range(4)]
-    t_short = bench.chain_seconds(sm, grids, 4, cuda)
-    t_long = bench.chain_seconds(sm, grids, 16, cuda)
-    assert 0 < t_short < t_long
-    _, x_gpu = bench.chained_sweeps(sm, grids[1], 5)
-    _, x_cpu = bench.chained_sweeps(models["cpu"], grids[1].cpu(), 5)
-    assert (torch.linalg.norm(x_gpu.cpu() - x_cpu)
-            <= 1e-12 * torch.linalg.norm(x_cpu))
-
-
 @pytest.mark.parametrize("cfg_kw", [None, {"factorization": "panel",
                                            "panel_width": 128},
                                     {"factorization": "gj"}])

@@ -5,6 +5,8 @@ Pallas kernels in interpret mode. Inputs are made with numpy from fixed
 seeds.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,6 +143,46 @@ def test_only_the_full_pivot_factor_asks_for_the_coefficients(
     assert seen == [want_ct] * 2
 
 
+def _written_out_chunk_steps(sys_, cfg):
+    """Each chunk's refinement steps, the sweep's loop written out: the
+    block-pivot factor refined, and above max(10·ε·‖b‖, 1e-9·‖b‖) the
+    full-pivot factor refined too (the reference's rule, with its
+    count)."""
+    ts_all = torch.cat([sys_.domain, sys_.domain[-1:]])  # padded to 2·2
+    ops_w = torch.stack(sys_.operators())
+    counts = []
+    for ts in ts_all.split(cfg.solve_chunk):
+        c, cb = sys_.coefficients(ts)
+        a = torch.einsum("gp,pij->gij", c.float(), ops_w.float())
+        b_w = cb[:, None, None] * sys_.b
+        b_norm = float(torch.linalg.norm(b_w))
+        tol = 10 * torch.finfo(torch.float64).eps * b_norm
+
+        def residual(x):
+            g, n, m = x.shape
+            ys = (ops_w @ x.transpose(0, 1).reshape(n, g * m)).reshape(
+                3, n, g, m)
+            return b_w - (c.T[:, None, :, None] * ys).sum(0).transpose(0, 1)
+
+        steps = 0
+        for factor in (panel_lu_factor_block, panel_lu_factor):
+            f = factor(a, trail="f32x6", panel=cfg.panel_width)
+            x = panel_lu_apply(f, b_w).double()
+            r = residual(x)
+            r_norm, r_prev, it = float(torch.linalg.norm(r)), math.inf, 0
+            while (r_norm > tol and r_norm < 0.95 * r_prev
+                   and it < cfg.refine_iterations):
+                x = x + panel_lu_apply(f, r).double()
+                r = residual(x)
+                r_prev, r_norm = r_norm, float(torch.linalg.norm(r))
+                it += 1
+            steps += it
+            if r_norm <= max(tol, 1e-9 * b_norm):
+                break
+        counts.append(steps)
+    return counts
+
+
 @pytest.mark.parametrize("singular", [False, True])
 def test_sweep_counts_escalations_and_refinement_iterations(singular):
     n = 256
@@ -153,13 +195,13 @@ def test_sweep_counts_escalations_and_refinement_iterations(singular):
     z = np.zeros((n, n))
     b = rng.standard_normal((n, 1))
     sys_ = system_from_numpy(domain, a0, z, z, b, device="cpu")
+    cfg = MorfemConfig(factorization="panel", panel_width=128, solve_chunk=2)
     reset_sweep_counters()
-    solve_sweep_panel(sys_, MorfemConfig(factorization="panel",
-                                         panel_width=128, solve_chunk=2))
+    solve_sweep_panel(sys_, cfg)
     assert solve_sweep_panel.escalations == (2 if singular else 0)
     its = solve_sweep_panel.chunk_iterations
     assert len(its) == 2 and all(i >= 1 for i in its)
-    assert sum(its) == panel_lu_mod._refine.iterations
+    assert its == _written_out_chunk_steps(sys_, cfg)
     reset_sweep_counters()
     assert solve_sweep_panel.escalations == 0
     assert solve_sweep_panel.chunk_iterations == []
