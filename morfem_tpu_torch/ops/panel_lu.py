@@ -24,7 +24,10 @@ matmuls.
 The refinement residuals in `solve_sweep_panel` are plain float64
 matmuls against the three shared affine operators — one wide product
 serves every point of a chunk. The card has native f64, so the reference's
-Ozaki split has no counterpart.
+Ozaki split has no counterpart. On the card a chunk's refinement step
+(the factor's apply, the residual) is replayed from CUDA graphs captured
+once a sweep, `_CapturedStep`: the same kernels on the same inputs, so the
+same bits as the eager step, for a few launches instead of ~90.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
+from morfem_tpu_torch.device import capture_graph
 from morfem_tpu_torch.ops.kernels import (
     gather_rows,
     mm_words,
@@ -298,6 +302,78 @@ def solve_batch_panel(
     )[0]
 
 
+def _chunk_residual(ops_w, c, b_w, x):
+    """b − Σ_p c_p·(ops_w[p] @ x) of a chunk [G, N, M]: one wide
+    [N, N] @ [N, G·M] product per operator serves the whole chunk."""
+    g, n, m = x.shape
+    xf = x.transpose(0, 1).reshape(n, g * m)
+    ys = (ops_w @ xf).reshape(3, n, g, m)
+    ax = (c.T.to(x.dtype)[:, None, :, None] * ys).sum(0)  # [N, G, M]
+    return b_w - ax.transpose(0, 1)
+
+
+def _captures_on(dev: torch.device) -> bool:
+    """Whether the sweep captures its refinement step on `dev`: on a
+    CUDA device."""
+    return dev.type == "cuda"
+
+
+def _step_shapes(f: PanelLUFactors, c, b_w):
+    return tuple((t.shape, t.dtype) for t in (
+        f.lug, f.perm, f.linv, f.uinv, f.dinv, c, b_w)) + (f.n,)
+
+
+class _CapturedStep:
+    """A chunk's refinement step as two CUDA graphs over static inputs.
+
+    Captured on the factor, coefficients c and right-hand side b_w of one
+    chunk, which stay its static inputs; `bind` copies another chunk's
+    in when their shapes match. `residual(x)` replays b_w − A(t)·x and
+    `apply(r)` the factor's apply, each after copying its argument into
+    the static input unless it is that input: the apply reads the
+    residual's static output, so a step copies only x. Both return
+    static outputs, which the next replay overwrites.
+    """
+
+    def __init__(self, f: PanelLUFactors, c, b_w, ops_w):
+        self.f = f
+        self.c = c.clone(memory_format=torch.contiguous_format)
+        self.b_w = b_w.clone(memory_format=torch.contiguous_format)
+        self.x = torch.zeros_like(self.b_w)
+        self.shapes = _step_shapes(f, c, b_w)
+        dev = b_w.device
+        self._residual, self.r = capture_graph(
+            dev, lambda: _chunk_residual(ops_w, self.c, self.b_w, self.x))
+        self._apply, self._dx = capture_graph(
+            dev, lambda: panel_lu_apply(self.f, self.r).to(self.b_w.dtype))
+
+    def bind(self, f: PanelLUFactors, c, b_w) -> bool:
+        """Make the chunk (f, c, b_w) the static inputs; False, leaving
+        them as they were, where its shapes differ from the captured."""
+        if f is self.f:
+            return True
+        if _step_shapes(f, c, b_w) != self.shapes:
+            return False
+        for mine, new in zip(self.f[:5], f[:5]):
+            mine.copy_(new)
+        self.c.copy_(c)
+        self.b_w.copy_(b_w)
+        return True
+
+    def residual(self, x):
+        if x is not self.x:
+            self.x.copy_(x)
+        self._residual.replay()
+        return self.r
+
+    def apply(self, r):
+        if r is not self.r:
+            self.r.copy_(r)
+        self._apply.replay()
+        solve_sweep_panel.replays += 1
+        return self._dx
+
+
 def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     """Full-order sweep: chunked panel LU + shared-operator refinement.
 
@@ -308,18 +384,27 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     escalates to the full-pivot factor when refinement stagnates above
     max(10·ε·‖b‖, 1e-9·‖b‖). Returns x [I, N, M].
 
+    On the card the first refined factor of the call captures its step
+    (`_CapturedStep`), and every factor of the same shapes (each chunk's
+    first factor: the padded last chunk has the same G) replays it, its
+    first apply too; a factor of other shapes (the full-pivot escalation's
+    128-wide blocks) and the CPU take the eager step. Either gives the
+    same bits.
+
     Plain counters, like the kernels' launches: ``escalations`` counts the
     chunks escalated to the full-pivot factor, and ``chunk_iterations``
     gets each chunk's refinement iterations (all its factors), appended in
-    order. `reset_sweep_counters` zeroes them. Under a trace-mode
+    order; ``captures`` counts the steps captured, ``replays`` the applies
+    run by replay. `reset_sweep_counters` zeroes them. Under a trace-mode
     `PhaseTimer` each chunk is a ``panel.chunk`` span, holding a
     ``panel.factor`` (with its ``panel.invert`` spans) and a
     ``panel.apply`` per factor tried, the ``refine.step`` spans and,
-    around the full-pivot retry, ``panel.escalate`` (`utils/timing.py`).
+    around the full-pivot retry, ``panel.escalate``; the capture is a
+    ``panel.capture`` span (`utils/timing.py`).
     """
     from morfem_tpu_torch.ops.assembly import impulse_vector
 
-    i_pts, n, m = sys.num_points, sys.n, sys.m
+    i_pts = sys.num_points
     chunk = max(1, min(config.solve_chunk, i_pts))
     pad = (-i_pts) % chunk
     ts_all = torch.cat([sys.domain, sys.domain[-1:].expand(pad)])
@@ -333,6 +418,8 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     # operators), so A(t) is assembled from pre-cast f32 operators
     ops32 = ops_w.to(torch.float32)
     cap = config.refine_iterations
+    on_card = _captures_on(ops_w.device)
+    step = None
 
     def solve_chunk(ts):
         c, cb = sys.coefficients(ts)  # [G, 3], [G]
@@ -347,26 +434,34 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
         b_norm = host_norm(b_w)
         tol = 10 * torch.finfo(work).eps * b_norm
 
-        def residual(x):
-            # one wide [N, N] @ [N, G·M] product per operator serves the
-            # whole chunk
-            g = x.shape[0]
-            xf = x.transpose(0, 1).reshape(n, g * m)
-            ys = (ops_w @ xf).reshape(3, n, g, m)
-            ax = (c.T.to(work)[:, None, :, None] * ys).sum(0)  # [N, G, M]
-            return b_w - ax.transpose(0, 1)
-
         def factor_refine(trail, pivot):
+            nonlocal step
             factor = panel_lu_factor_block if pivot == "block" else (
                 panel_lu_factor
             )
             with span("panel.factor"):
                 f = factor(a, trail=trail, panel=config.panel_width)
-            with span("panel.apply"):
-                x = panel_lu_apply(f, rhs).to(work)
+            if on_card and step is None:
+                with span("panel.capture"):
+                    step = _CapturedStep(f, c, b_w, ops_w)
+                solve_sweep_panel.captures += 1
+            if step is not None and step.bind(f, c, b_w):
+                residual, apply = step.residual, step.apply
+                with span("panel.apply"):
+                    # the replay's output is static: x starts as a copy
+                    x = apply(rhs).clone()
+            else:
+                def residual(x):
+                    return _chunk_residual(ops_w, c, b_w, x)
+
+                def apply(r):
+                    return panel_lu_apply(f, r).to(work)
+
+                with span("panel.apply"):
+                    x = apply(rhs)
             x, _, r_norm, steps = refine(
-                x, residual, lambda r: panel_lu_apply(f, r).to(work), tol,
-                cap, norm=host_norm, span_name="refine.step",
+                x, residual, apply, tol, cap, norm=host_norm,
+                span_name="refine.step",
             )
             return x, r_norm, steps
 
@@ -397,11 +492,13 @@ def solve_sweep_panel(sys, config: MorfemConfig = DEFAULT_CONFIG):
     return torch.cat(xs)[:i_pts]
 
 
-solve_sweep_panel.escalations = 0
-solve_sweep_panel.chunk_iterations = []
-
-
 def reset_sweep_counters() -> None:
-    """Zero the refinement and escalation counters of the panel sweep."""
+    """Zero the refinement, escalation and graph counters of the panel
+    sweep."""
     solve_sweep_panel.escalations = 0
     solve_sweep_panel.chunk_iterations = []
+    solve_sweep_panel.captures = 0
+    solve_sweep_panel.replays = 0
+
+
+reset_sweep_counters()

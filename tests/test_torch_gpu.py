@@ -1245,3 +1245,115 @@ def test_tri_inverse_kernel_captures_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         eager = tri_inverse(lu)
         assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+
+
+def _traced_sweep(sys_, cfg):
+    """solve_sweep_panel under a trace-mode timer → (x, its span counts,
+    chunk_iterations, escalations, captures, replays)."""
+    from morfem_tpu_torch.ops.panel_lu import (
+        reset_sweep_counters, solve_sweep_panel,
+    )
+    from morfem_tpu_torch.utils.timing import PhaseTimer
+
+    reset_sweep_counters()
+    timer = PhaseTimer(trace=True)
+    with timer.span("sweep_call"), timer.phase("full-order sweep"):
+        x = solve_sweep_panel(sys_, cfg)
+    torch.cuda.synchronize()
+    f = solve_sweep_panel
+    return (x, dict(timer.counts), list(f.chunk_iterations), f.escalations,
+            f.captures, f.replays)
+
+
+def _eager_sweep(monkeypatch, sys_, cfg):
+    """The eager step's sweep on the card: the capture switched off."""
+    from morfem_tpu_torch.ops import panel_lu as plu
+
+    with monkeypatch.context() as m:
+        m.setattr(plu, "_captures_on", lambda dev: False)
+        return _traced_sweep(sys_, cfg)
+
+
+def test_the_waveguide_sweep_replays_its_captured_step(cuda, monkeypatch):
+    """N=3411, 100 points in 13 chunks of 8 (the last one padded): one
+    capture, one replay an apply (each chunk's first apply and each step),
+    and the eager step's x bit for bit, with the same steps, the same
+    ``panel.apply`` and ``refine.step`` spans and the same host reads."""
+    from morfem_tpu_torch.apps.waveguide import (
+        load_waveguide_data, waveguide_system,
+    )
+    from morfem_tpu_torch.config import MorfemConfig
+
+    data = load_waveguide_data(n_fallback=3411)
+    sys_ = waveguide_system(np.linspace(3e9, 5e9, 100), data, device=cuda)
+    cfg = MorfemConfig()
+    x, counts, its, esc, captures, replays = _traced_sweep(sys_, cfg)
+    x_e, counts_e, its_e, esc_e, captures_e, replays_e = _eager_sweep(
+        monkeypatch, sys_, cfg)
+    assert torch.equal(x, x_e)
+    assert its == its_e and len(its) == 13 and esc == esc_e == 0
+    assert (captures, replays) == (1, sum(its) + 13)
+    assert captures_e == replays_e == 0
+    assert counts.pop("panel.capture") == 1
+    assert counts == counts_e
+    assert counts["refine.step"] == sum(its)
+    assert counts["panel.apply"] == 13
+
+
+@pytest.mark.parametrize("n,panel", [(256, 128), (1800, 384)])
+def test_a_singular_diagonal_block_still_escalates_on_the_card(
+        cuda, monkeypatch, n, panel):
+    """The leading diagonal block is singular, so every chunk escalates
+    to the full-pivot factor, and the sweep equals the eager one bit for
+    bit. At N=256 in panels of 128 the full-pivot factor has the block
+    factor's shapes and replays too; at N=1800 in panels of 384 its
+    panels are 128 wide (`full_pivot_panel`), so it takes the eager step
+    and only the block factors' first applies replay (their residual is
+    not finite: no step)."""
+    from morfem_tpu_torch.compat import system_from_numpy
+    from morfem_tpu_torch.config import MorfemConfig
+
+    rng = np.random.default_rng(5)
+    a0 = rng.standard_normal((n, n))
+    a0 = a0 + a0.T + 4 * np.sqrt(n) * np.eye(n)
+    a0[:panel, :panel] = 0.0
+    z = np.zeros((n, n))
+    b = rng.standard_normal((n, 1))
+    sys_ = system_from_numpy(np.array([1.0, 2.0, 3.0]), a0, z, z, b,
+                             device=cuda)
+    cfg = MorfemConfig(factorization="panel", panel_width=panel,
+                       solve_chunk=2)
+    x, counts, its, esc, captures, replays = _traced_sweep(sys_, cfg)
+    x_e, counts_e, its_e, esc_e, _, _ = _eager_sweep(monkeypatch, sys_, cfg)
+    assert bool(torch.isfinite(x).all())
+    assert torch.equal(x, x_e) and its == its_e
+    assert esc == esc_e == counts["panel.escalate"] == 2
+    assert captures == 1
+    assert replays == (sum(its) + 4 if panel == 128 else 2)
+    counts.pop("panel.capture")
+    assert counts == counts_e
+
+
+def test_the_captured_sweep_holds_no_memory_between_calls(cuda):
+    """Each call captures its step anew and frees it on return: after the
+    first call (the capture stream's cuBLAS workspace) the card's
+    allocated memory is the same after every call."""
+    from morfem_tpu_torch.compat import system_from_numpy
+    from morfem_tpu_torch.config import MorfemConfig
+    from morfem_tpu_torch.ops.panel_lu import solve_sweep_panel
+
+    rng = np.random.default_rng(2)
+    n = 300
+    a0 = rng.standard_normal((n, n))
+    a0 = a0 + a0.T + 4 * np.sqrt(n) * np.eye(n)
+    sys_ = system_from_numpy(np.linspace(1.0, 2.0, 5), a0, np.zeros((n, n)),
+                             -0.01 * np.eye(n), rng.standard_normal((n, 2)),
+                             device=cuda)
+    cfg = MorfemConfig(factorization="panel", panel_width=128, solve_chunk=2)
+    after = []
+    for _ in range(4):
+        solve_sweep_panel(sys_, cfg)
+        torch.cuda.synchronize()
+        after.append(torch.cuda.memory_allocated(cuda))
+    assert solve_sweep_panel.captures >= 4
+    assert after[1] == after[2] == after[3], after

@@ -26,6 +26,7 @@ from morfem_tpu_torch.ops.panel_lu import (
     solve_batch_panel,
     solve_sweep_panel,
 )
+from morfem_tpu_torch.utils.timing import HOST_SYNC, PhaseTimer
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -202,6 +203,125 @@ def test_sweep_counts_escalations_and_refinement_iterations(singular):
     its = solve_sweep_panel.chunk_iterations
     assert len(its) == 2 and all(i >= 1 for i in its)
     assert its == _written_out_chunk_steps(sys_, cfg)
+    # the CPU takes the eager step: nothing is captured or replayed
+    assert solve_sweep_panel.captures == solve_sweep_panel.replays == 0
     reset_sweep_counters()
     assert solve_sweep_panel.escalations == 0
     assert solve_sweep_panel.chunk_iterations == []
+
+
+class _StandInGraph:
+    """A CUDA graph's contract on the CPU: `replay` reruns the captured
+    function and writes its result into the outputs the capture returned
+    (the static outputs)."""
+
+    def __init__(self, fn, out):
+        self.fn, self.out = fn, out
+
+    def replay(self):
+        self.out.copy_(self.fn())
+
+
+def stand_in_capture(dev, fn, *args):
+    out = fn(*args)
+    return _StandInGraph(lambda: fn(*args), out), out
+
+
+def use_stand_in_graphs(monkeypatch):
+    """Route the CPU sweep through the captured step, with stand-in
+    graphs: the step's static inputs, copies and outputs as on the
+    card."""
+    monkeypatch.setattr(panel_lu_mod, "_captures_on", lambda dev: True)
+    monkeypatch.setattr(panel_lu_mod, "capture_graph", stand_in_capture)
+
+
+def _sweep_pencil(singular, n=256, pts=5):
+    rng = np.random.default_rng(5)
+    a0 = rng.standard_normal((n, n))
+    a0 = a0 + a0.T + 4 * np.sqrt(n) * np.eye(n)
+    a2 = -0.01 * np.eye(n)
+    if singular:
+        a0[:128, :128] = 0.0  # block pivoting must escalate
+        a2[:128, :128] = 0.0
+    b = rng.standard_normal((n, 2))
+    return system_from_numpy(np.linspace(1.0, 3.0, pts), a0,
+                             np.zeros((n, n)), a2, b, device="cpu")
+
+
+@pytest.mark.parametrize("singular", [False, True])
+def test_the_captured_step_gives_the_eager_bits(monkeypatch, singular):
+    """Five points in chunks of 2 (a padded last chunk): the step
+    captured once and replayed for every chunk's factor gives the eager
+    x bit for bit, with the same steps. At N=256 in panels of 128 the
+    escalation's full-pivot factor has the block factor's shapes, so it
+    is copied in and replays too. `reset_sweep_counters` zeroes the graph
+    counters."""
+    sys_ = _sweep_pencil(singular)
+    cfg = MorfemConfig(factorization="panel", panel_width=128, solve_chunk=2)
+    reset_sweep_counters()
+    eager = solve_sweep_panel(sys_, cfg)
+    eager_its = solve_sweep_panel.chunk_iterations
+    use_stand_in_graphs(monkeypatch)
+    reset_sweep_counters()
+    graphed = solve_sweep_panel(sys_, cfg)
+    its = solve_sweep_panel.chunk_iterations
+    assert torch.equal(graphed, eager)
+    assert its == eager_its and len(its) == 3
+    assert solve_sweep_panel.escalations == (3 if singular else 0)
+    assert solve_sweep_panel.captures == 1
+    # one first apply a factor, one apply a step
+    factors = 3 + solve_sweep_panel.escalations
+    assert solve_sweep_panel.replays == sum(its) + factors
+    reset_sweep_counters()
+    assert solve_sweep_panel.captures == solve_sweep_panel.replays == 0
+
+
+@pytest.mark.parametrize("singular", [False, True])
+def test_the_captured_step_keeps_the_eager_spans(monkeypatch, singular):
+    """Under a trace-mode timer the replayed step records the eager
+    step's spans and host reads, one for one, plus one ``panel.capture``
+    in the first chunk, with nothing opened inside the capture."""
+    cfg = MorfemConfig(factorization="panel", panel_width=128, solve_chunk=2)
+    counts = []
+    for graphed in (False, True):
+        if graphed:
+            use_stand_in_graphs(monkeypatch)
+        timer = PhaseTimer(trace=True)
+        with timer.span("sweep_call"), timer.phase("full-order sweep"):
+            solve_sweep_panel(_sweep_pencil(singular), cfg)
+        counts.append(dict(timer.counts))
+    eager, replayed = counts
+    assert replayed.pop("panel.capture") == 1 and "panel.capture" not in eager
+    assert replayed == eager
+    for name in ("panel.apply", "refine.step", HOST_SYNC):
+        assert eager[name] > 0
+    cap = [i for i, s in enumerate(timer.spans) if s.name == "panel.capture"]
+    assert timer.spans[timer.spans[cap[0]].parent].name == "panel.chunk"
+    assert not [s for s in timer.spans if s.parent == cap[0]]
+
+
+def test_a_factor_of_other_shapes_takes_the_eager_step(monkeypatch):
+    """Under full pivoting with panels of 384 at N=300 the factor's
+    panel is 384 and nothing escalates: every chunk replays. A step
+    captured on another chunk's shapes is not bound."""
+    use_stand_in_graphs(monkeypatch)
+    sys_ = _sweep_pencil(False, n=300, pts=4)
+    cfg = MorfemConfig(factorization="panel", panel_width=384,
+                       solve_chunk=2, panel_pivot="full")
+    reset_sweep_counters()
+    x = solve_sweep_panel(sys_, cfg)
+    assert solve_sweep_panel.captures == 1
+    assert solve_sweep_panel.replays == sum(
+        solve_sweep_panel.chunk_iterations) + 2
+    f = panel_lu_factor_block(torch.eye(300, dtype=torch.float64)[None]
+                              .expand(2, 300, 300), panel=128)
+    c = torch.zeros((2, 3), dtype=torch.float64)
+    b_w = torch.zeros((2, 300, 2), dtype=torch.float64)
+    step = panel_lu_mod._CapturedStep(f, c, b_w, torch.zeros(
+        (3, 300, 300), dtype=torch.float64))
+    other = panel_lu_factor(torch.eye(300, dtype=torch.float64)[None]
+                            .expand(2, 300, 300), panel=384)
+    lug = step.f.lug.clone()
+    assert not step.bind(other, c, b_w)  # one block of 384, not 3 of 128
+    assert torch.equal(step.f.lug, lug)
+    assert bool(torch.isfinite(x).all())
