@@ -11,7 +11,8 @@ real Cayley form exists only because its chip has no complex128).
 
 `tiled_waveguide_system` prepares the upstream stress case, the waveguide
 tiled along a block diagonal (``fake_interpolate_bigger_sample.py``: 10×,
-N = 34,110), as a SciPy-sparse pencil for the matrix-free route.
+N = 34,110), as a SciPy-sparse pencil for the matrix-free route; its
+full-order GSM sweep (`full_order_gsm`) runs the banded sweep.
 
 `load_waveguide_data` reads the bundled synthetic stand-in
 ``data/synthetic_cache/synthetic_wg_<N>.npz`` and never writes into the
@@ -34,7 +35,11 @@ from scipy.constants import pi as PI
 
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.device import resolve_device
-from morfem_tpu_torch.mor.api import _run_sweep, build_reduced_model
+from morfem_tpu_torch.mor.api import (
+    MatfreeSystem,
+    _run_sweep,
+    build_reduced_model,
+)
 from morfem_tpu_torch.ops.solve import solve_sweep
 from morfem_tpu_torch.system import AffineSystem
 from morfem_tpu_torch.utils.timing import PhaseTimer
@@ -258,10 +263,8 @@ def tiled_waveguide_system(
 ):
     """The tiled waveguide (`tiled_waveguide_pencil`) prepared once for
     the matrix-free route (`mor/api.py::MatfreeSystem`, with `config`'s
-    ``symmetrize`` and ``band_max_half``); `mor_gsm` sweeps it, re-gridded
-    by ``with_domain``."""
-    from morfem_tpu_torch.mor.api import MatfreeSystem
-
+    ``symmetrize`` and ``band_max_half``); `mor_gsm` and `full_order_gsm`
+    sweep it, re-gridded by ``with_domain``."""
     kte = data.kte
     return MatfreeSystem.create(
         np.asarray(frequency_points, np.float64),
@@ -272,16 +275,22 @@ def tiled_waveguide_system(
 
 
 def full_order_gsm(
-    sys: AffineSystem,
+    sys,
     config: MorfemConfig = DEFAULT_CONFIG,
     timer: Optional[PhaseTimer] = None,
 ) -> torch.Tensor:
-    """Full-order ("No MOR") GSM sweep — the oracle path."""
+    """Full-order ("No MOR") GSM sweep — the oracle path — of an
+    `AffineSystem` (the dense route) or a prepared `MatfreeSystem` (the
+    banded sweep, `solve_sweep`). The GSM of a `MatfreeSystem` is formed
+    in its operator's row order, in which it holds b: EᵀB is the same
+    when E and B are permuted alike."""
     timer = timer or PhaseTimer(disabled=True)
     with timer.span("full_order_gsm"):
         with timer.phase("full-order sweep"):
             x = solve_sweep(sys, config)
         with timer.phase("gsm"):
+            if isinstance(sys, MatfreeSystem):
+                x = x[:, sys.perm]
             _, cb = sys.coefficients(sys.domain)
             gsm = generalized_scattering_matrix(
                 sys.domain, x, cb[:, None, None] * sys.b

@@ -41,6 +41,7 @@ from morfem_tpu_torch.device import resolve_device
 from morfem_tpu_torch.system import (
     AffineSystem,
     Coefficient,
+    _coefficients,
     _default_t_a0,
     _default_t_a1,
     _default_t_a2,
@@ -228,6 +229,23 @@ class MatfreeSystem:
         return dataclasses.replace(
             self, domain=torch.as_tensor(domain, device=self.device))
 
+    def coefficients(self, t) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(c [..., P], cb [...]) for a tensor (or scalar) of points: the
+        counterpart of `AffineSystem.coefficients`, over the operator's P
+        addends (3, plus the extra terms)."""
+        return _coefficients((self.t_a0, self.t_a1, self.t_a2,
+                              *self.t_extra), self.t_b, t)
+
+    def check_knobs(self, config: MorfemConfig) -> None:
+        """Raise unless `config`'s operator knobs are the ones the system
+        was prepared with."""
+        if (config.symmetrize, config.band_max_half) != (
+                self.symmetrize, self.band_max_half):
+            raise ValueError(
+                "the matrix-free system was prepared with symmetrize="
+                f"{self.symmetrize}, band_max_half={self.band_max_half}; "
+                "prepare it again with this config's")
+
 
 def build_matfree(sys: MatfreeSystem, config: MorfemConfig = DEFAULT_CONFIG,
                   timer: Optional[PhaseTimer] = None):
@@ -241,12 +259,7 @@ def build_matfree(sys: MatfreeSystem, config: MorfemConfig = DEFAULT_CONFIG,
         sparse_snapshot_basis,
     )
 
-    if (config.symmetrize, config.band_max_half) != (sys.symmetrize,
-                                                     sys.band_max_half):
-        raise ValueError(
-            "the matrix-free system was prepared with symmetrize="
-            f"{sys.symmetrize}, band_max_half={sys.band_max_half}; prepare "
-            "it again with this config's")
+    sys.check_knobs(config)
     timer = timer or PhaseTimer(disabled=True)
     domain, op, perm, b_op = sys.domain, sys.op, sys.perm, sys.b
     t_a0, t_a1, t_a2, t_b, t_extra = (sys.t_a0, sys.t_a1, sys.t_a2, sys.t_b,
@@ -335,6 +348,13 @@ def morfem(
                              "coefficients")
         with timer.span("morfem"):
             return _morfem_matfree(a0.with_domain(domain), config, timer)
+    missing = [name for name, x in (("a1", a1), ("a2", a2), ("b", b))
+               if x is None]
+    if missing:
+        raise TypeError(
+            f"morfem() missing {len(missing)} required argument(s): "
+            + ", ".join(repr(name) for name in missing)
+            + " (only a prepared MatfreeSystem carries them)")
     with timer.span("morfem"):
         fns = (t_a0, t_a1, t_a2, t_b)
         # one table per callable over the whole grid: the system is complex

@@ -14,7 +14,9 @@ reference's, so both packages take the same path for the same band.
 `BandedAffineOperator` holds the P addends of an affine pencil in this
 layout (pre-symmetrized on the host) and offers the operator surface the
 solvers use: `bind` (f32 fast matvec, K5 or blocked), `bind_precise` (the
-f64 reference matvec for residuals), `apply_addend` and `diagonal`.
+f64 reference matvec for residuals), `apply_addend`, `diagonal`, and
+`blocks` (the f32 block-tridiagonal blocks of A(c) that the block-Thomas
+factor takes).
 """
 
 from __future__ import annotations
@@ -158,7 +160,8 @@ class BandedAffineOperator:
     `solve_point_iterative` takes it. The P addends are stored in
     diagonal form, pre-symmetrized on the host, in f64 (`bands_w`
     [P, N, BW]); narrow bands also keep an f32 copy (`bands_p`) that
-    `bind` combines per point for the kernel.
+    `bind` combines per point for the kernel. ``nonzero_addends`` lists
+    the addends with a nonzero entry (the waveguide's a1 has none).
     """
 
     def __init__(
@@ -198,6 +201,9 @@ class BandedAffineOperator:
             aligned[p, :, self.half - h:self.half + h + 1] = band
         self.n = n
         self.bw = bw
+        self.nonzero_addends = tuple(
+            p for p, a in enumerate(mats)
+            if (a.count_nonzero() if sp.issparse(a) else np.any(a)))
         self.bands_w = torch.from_numpy(aligned).to(dev)  # [P, N, BW] f64
         # the kernel's f32 operand (narrow bands only; wide bands run the
         # blocked matvec straight off bands_w)
@@ -251,3 +257,25 @@ class BandedAffineOperator:
 
     def diagonal(self, c: torch.Tensor) -> torch.Tensor:
         return combine_addends(c, self.diags)
+
+    def blocks(self, c: torch.Tensor, block: int):
+        """The f32 block-tridiagonal blocks (l, d, u) of A(c)
+        (`band_to_blocks`): [nb, b, b] for coefficients c [P], or
+        [G, nb, b, b] for c [G, P], made one point at a time. Each point's
+        bands are combined in f64, rounded to f32 and then cut into
+        blocks, so no f64 block window is made: the same numbers as the
+        f64 blocks rounded to f32."""
+        from morfem_tpu_torch.ops.block_tridiag import band_to_blocks
+
+        if c.ndim == 1:
+            band32 = combine_addends(c, self.bands_w).to(torch.float32)
+            return band_to_blocks(band32, self.half, block)
+        out = None
+        for g, c_g in enumerate(c):
+            point = self.blocks(c_g, block)
+            if out is None:
+                out = tuple(t.new_empty((c.shape[0], *t.shape))
+                            for t in point)
+            for o, t in zip(out, point):
+                o[g] = t
+        return out

@@ -24,6 +24,10 @@ through the real 2b embedding of each block, as the reference does.
 block-Thomas chain: ⌈log₂ nb⌉ levels, each one batched inverse of the raw
 odd diagonal blocks and a few batched products (`cyclic_reduction_factor`),
 with the same f64 refinement around it.
+
+`solve_sweep_banded` is the full-order sweep of a prepared sparse pencil:
+the block-Thomas factor and apply take a leading point axis, so a chunk of
+points is factored step by step together, and refined together.
 """
 
 from __future__ import annotations
@@ -36,12 +40,18 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.banded_matvec import combine_addends
 from morfem_tpu_torch.ops.complex_split import real_embedding
-from morfem_tpu_torch.ops.refine import refine
+from morfem_tpu_torch.ops.refine import host_norm, refine
 from morfem_tpu_torch.utils.timing import host_read, span
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _block_size(half: int) -> int:
+    """The default block of a band of half-bandwidth ``half``: the
+    smallest multiple of 128 at or above it."""
+    return max(128, _round_up(half, 128))
 
 
 class BandwidthError(ValueError):
@@ -88,7 +98,8 @@ def band_to_blocks(
 
 
 class BlockTridiagFactors(NamedTuple):
-    """f32 block-Thomas factors: g[i] = S_i⁻¹, h[i] = S_i⁻¹·U_i, plus L."""
+    """f32 block-Thomas factors: g[i] = S_i⁻¹, h[i] = S_i⁻¹·U_i, plus L
+    (of one point, or [G, nb, b, b] of G points)."""
 
     g: torch.Tensor  # [nb, b, b]
     h: torch.Tensor  # [nb, b, b]
@@ -99,12 +110,18 @@ class BlockTridiagFactors(NamedTuple):
 def _coupling_sets(l32: torch.Tensor, u32: torch.Tensor):
     """Each u[i]'s nonzero rows and each l[i]'s nonzero columns, as index
     tensors on the blocks' device ([nb] lists; a NaN counts as nonzero).
+    Over leading point axes a row or column is in the set where any
+    point's block has a nonzero in it.
 
     One batched reduction and one read of the 2·nb counts: a stable sort
     puts each block's nonzero indices first, in order, so each set is a
     slice of the sorted indices and no index is copied from the host.
     """
-    nz = torch.stack([(u32 != 0).any(dim=2), (l32 != 0).any(dim=1)])
+    nb, b = u32.shape[-3], u32.shape[-1]
+    nz = torch.stack([
+        (u32 != 0).any(dim=-1).reshape(-1, nb, b).any(dim=0),
+        (l32 != 0).any(dim=-2).reshape(-1, nb, b).any(dim=0),
+    ])
     order = torch.sort(nz.to(torch.uint8), dim=-1, descending=True,
                        stable=True).indices
     counts = host_read(torch.Tensor.tolist, nz.sum(dim=-1))
@@ -116,13 +133,30 @@ def _product_over(a: torch.Tensor, b: torch.Tensor,
                   idx: torch.Tensor) -> torch.Tensor:
     """a @ b summed over the inner indices ``idx`` only (a's other columns
     or b's other rows are zero); all of them: the plain product."""
-    if idx.numel() == a.shape[1]:
+    if idx.numel() == a.shape[-1]:
         return a @ b
-    return a.index_select(1, idx) @ b.index_select(0, idx)
+    return a.index_select(-1, idx) @ b.index_select(-2, idx)
+
+
+def _inverse_each(s: torch.Tensor) -> torch.Tensor:
+    """`torch.linalg.inv_ex` of each matrix of [..., b, b] alone: a
+    batched inverse of large blocks goes to another library (MAGMA on the
+    card; MKL's batched LU stalls on some CPUs)."""
+    if s.ndim == 2:
+        return torch.linalg.inv_ex(s)[0]
+    b = s.shape[-1]
+    return torch.stack([torch.linalg.inv_ex(m)[0]
+                        for m in s.reshape(-1, b, b)]).reshape(s.shape)
 
 
 def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     """Block-Thomas factorization in f32 (one dependent step per block).
+
+    The blocks are [nb, b, b], or [G, nb, b, b] for G points factored
+    together: each step then runs over the G points at once (the coupling
+    products batched, each Schur complement inverted alone,
+    `_inverse_each`), and the coupling sets are the union of the points'
+    (read once for all of them).
 
     Each coupling product runs over the coupling blocks' nonzero rows and
     columns only: with R_i the nonzero rows of U_i and C_i the nonzero
@@ -146,16 +180,20 @@ def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     """
     f32 = torch.float32
     l32, d32, u32 = l.to(f32), d.to(f32), u.to(f32)
-    nb, b, _ = d32.shape
+    nb, b = d32.shape[-3], d32.shape[-1]
     rows, cols = _coupling_sets(l32, u32)
     g = torch.empty_like(d32)
     h = torch.empty_like(d32)
     for i in range(nb):
         c, r = cols[i], rows[i]
-        s = (d32[i] if i == 0 or not c.numel()
-             else d32[i] - _product_over(l32[i], h[i - 1], c))
-        g[i] = torch.linalg.inv_ex(s)[0]
-        h[i] = _product_over(g[i], u32[i], r) if r.numel() else 0.0
+        d_i, g_i, h_i = d32.select(-3, i), g.select(-3, i), h.select(-3, i)
+        s = (d_i if i == 0 or not c.numel() else
+             d_i - _product_over(l32.select(-3, i), h.select(-3, i - 1), c))
+        g_i.copy_(_inverse_each(s))
+        if r.numel():
+            h_i.copy_(_product_over(g_i, u32.select(-3, i), r))
+        else:
+            h_i.zero_()
     full = 2 * (nb - 1) * b
     kept = sum(c.numel() for c in cols[1:]) + sum(
         r.numel() for r in rows[:-1])
@@ -173,21 +211,26 @@ def reset_factor_counters() -> None:
 
 def block_tridiag_apply(factors: BlockTridiagFactors,
                         rhs: torch.Tensor) -> torch.Tensor:
-    """Approximate A⁻¹·rhs with the factors (f32); rhs [N, M] → [N, M]."""
+    """Approximate A⁻¹·rhs with the factors (f32); rhs [N, M] → [N, M],
+    or [G, N, M] → [G, N, M] with factors of G points."""
     g, h, l, n = factors
-    nb, b, _ = g.shape
-    m = rhs.shape[1]
-    r = torch.zeros((nb * b, m), dtype=torch.float32, device=g.device)
-    r[:n] = rhs[:n]
-    r = r.reshape(nb, b, m)
+    nb, b = g.shape[-3], g.shape[-1]
+    lead, m = g.shape[:-3], rhs.shape[-1]
+    r = torch.zeros((*lead, nb * b, m), dtype=torch.float32, device=g.device)
+    r[..., :n, :] = rhs[..., :n, :]
+    r = r.reshape(*lead, nb, b, m)
     w = torch.empty_like(r)
     for i in range(nb):
-        w[i] = g[i] @ (r[i] if i == 0 else r[i] - l[i] @ w[i - 1])
+        r_i = r.select(-3, i)
+        if i:
+            r_i = r_i - l.select(-3, i) @ w.select(-3, i - 1)
+        w.select(-3, i).copy_(g.select(-3, i) @ r_i)
     x = torch.empty_like(r)
-    x[-1] = w[-1]
+    x.select(-3, nb - 1).copy_(w.select(-3, nb - 1))
     for i in range(nb - 2, -1, -1):
-        x[i] = w[i] - h[i] @ x[i + 1]
-    return x.reshape(nb * b, m)[:n]
+        x.select(-3, i).copy_(
+            w.select(-3, i) - h.select(-3, i) @ x.select(-3, i + 1))
+    return x.reshape(*lead, nb * b, m)[..., :n, :]
 
 
 class CRLevel(NamedTuple):
@@ -313,16 +356,14 @@ def banded_direct_solve(
         raise ValueError(f"factorization must be 'scan' or 'cr', got "
                          f"{factorization!r}")
     with span("banded.factor"):
-        band_t = combine_addends(c, op.bands_w)
-        b = block or max(128, _round_up(op.half, 128))
-        blocks = band_to_blocks(band_t, op.half, b)
+        blocks = op.blocks(c, block or _block_size(op.half))
         if factorization == "cr":
             factors = cyclic_reduction_factor(*blocks, op.n)
             apply = cyclic_reduction_apply
         else:
             factors = block_tridiag_factor(*blocks, op.n)
             apply = block_tridiag_apply
-        del band_t, blocks
+        del blocks
     mv = op.bind_precise(c)
 
     def apply_factor(r):
@@ -343,6 +384,115 @@ def banded_direct_solve(
     return x, relres, it
 
 
+def solve_sweep_banded(sys, config: MorfemConfig = DEFAULT_CONFIG):
+    """Full-order sweep of a prepared sparse pencil (`mor/api.py::
+    MatfreeSystem`) → x [I, N, M] in the caller's row order.
+
+    A banded operator is swept in chunks of ``config.solve_chunk`` points
+    (the last padded with copies of the last point, as `solve_sweep_panel`
+    pads). Per chunk: each point's f32 blocks (`BandedAffineOperator.
+    blocks`), one block-Thomas factor with the point axis batched, its
+    apply to the chunk's right-hand sides, then one f64 refinement of the
+    whole chunk (`_solve_chunk`). A GMRES-route pencil (a
+    `GeneralSparseOperator`, after a `BandwidthError`) is swept point by
+    point by `solve_point_iterative` (``method="general"``).
+
+    Plain counters, as `solve_sweep_panel` keeps them: ``chunk_iterations``
+    gets each chunk's refinement passes, in order, and ``escalations``
+    counts the points escalated; `reset_banded_sweep_counters` zeroes
+    them. Under a trace-mode `PhaseTimer` each chunk is a ``banded.chunk``
+    span holding a ``banded.factor`` (the blocks and their factor), the
+    ``banded.refine`` passes and, around the fallback,
+    ``banded.escalate``; each read of a norm or of the coupling counts is
+    a ``host sync``.
+    """
+    from morfem_tpu_torch.ops.sparse import solve_point_iterative
+
+    op, work = sys.op, sys.b.dtype
+    i_pts = int(sys.domain.shape[0])
+    if hasattr(op, "bands_w"):
+        chunk = max(1, min(config.solve_chunk, i_pts))
+        pad = (-i_pts) % chunk
+        ts_all = torch.cat([sys.domain, sys.domain[-1:].expand(pad)])
+        xs = []
+        for start in range(0, i_pts, chunk):
+            with span("banded.chunk"):
+                x, steps = _solve_chunk(
+                    sys, ts_all[start:start + chunk],
+                    min(chunk, i_pts - start), config)
+            xs.append(x)
+            solve_sweep_banded.chunk_iterations.append(steps)
+        x = torch.cat(xs)[:i_pts]
+    else:
+        c, cb = sys.coefficients(sys.domain)
+        x = torch.stack([
+            solve_point_iterative(op, c_i.to(work), cb_i.to(work) * sys.b,
+                                  method="general")
+            for c_i, cb_i in zip(c, cb)])
+    out = torch.empty_like(x)
+    out[:, sys.perm] = x
+    return out
+
+
+def _solve_chunk(sys, ts, real: int, config: MorfemConfig):
+    """x [G, N, M] of one chunk of a banded sweep (operator row order) and
+    its refinement passes; ``real``: the chunk's points that are not
+    padding.
+
+    The refinement is `ops/refine.py::refine` over the whole chunk, as in
+    `solve_sweep_panel`: to 10·ε·‖b‖ of the chunk's right-hand sides,
+    stopping when a pass cuts ‖r‖ by less than 3 % (the banded solves'
+    rule) or after ``config.refine_iterations`` passes. Its residual
+    applies each nonzero addend once to the chunk's stacked solutions
+    [N, G·M] (`apply_addend`, f64). A chunk left above max(10·ε·‖b‖,
+    1e-9·‖b‖), or NaN (an exactly singular Schur complement), escalates:
+    each of its points is solved again by the shifted GMRES that the
+    greedy escalates to (`shifted_gmres_solve`).
+    """
+    op, work = sys.op, sys.b.dtype
+    c, cb = sys.coefficients(ts)
+    c, cb = c.to(work), cb.to(work)
+    rhs = cb[:, None, None] * sys.b  # [G, N, M]
+    with span("banded.factor"):
+        factors = block_tridiag_factor(
+            *op.blocks(c, _block_size(op.half)), op.n)
+
+    def residual(x):
+        g, n, m = x.shape
+        xf = x.transpose(0, 1).reshape(n, g * m)
+        ax = torch.zeros((n, g, m), dtype=work, device=x.device)
+        for p in op.nonzero_addends:
+            ax += c[:, p, None] * op.apply_addend(p, xf).reshape(n, g, m)
+        return rhs - ax.transpose(0, 1)
+
+    def apply(r):
+        return block_tridiag_apply(factors, r).to(work)
+
+    b_norm = host_norm(rhs)
+    tol = 10 * torch.finfo(work).eps * b_norm
+    x, _, r_norm, steps = refine(
+        apply(rhs), residual, apply, tol, config.refine_iterations,
+        norm=host_norm, stop=0.97, span_name="banded.refine",
+    )
+    # "not <=" so that a NaN residual escalates too
+    if not r_norm <= max(tol, 1e-9 * b_norm):
+        with span("banded.escalate"):
+            for g in range(real):
+                x[g] = shifted_gmres_solve(op, c[g], rhs[g], tol=1e-10,
+                                           maxiter=60)[0]
+        solve_sweep_banded.escalations += real
+    return x, steps
+
+
+def reset_banded_sweep_counters() -> None:
+    """Zero the refinement and escalation counters of the banded sweep."""
+    solve_sweep_banded.chunk_iterations = []
+    solve_sweep_banded.escalations = 0
+
+
+reset_banded_sweep_counters()
+
+
 def shifted_block_precond(op, c: torch.Tensor, sigma: float = 1e-5,
                           block=None):
     """Preconditioner P(r) = Re((A − iσs)⁻¹ r) via the embedded factors.
@@ -357,7 +507,7 @@ def shifted_block_precond(op, c: torch.Tensor, sigma: float = 1e-5,
     Returns (precond_fn [N, M] → [N, M], factors).
     """
     band_t = combine_addends(c, op.bands_w)
-    b = block or max(128, _round_up(op.half, 128))
+    b = block or _block_size(op.half)
     l, d, u = band_to_blocks(band_t, op.half, b)
     shift = sigma * float(op.diagonal(c).abs().max())
     nb = d.shape[0]

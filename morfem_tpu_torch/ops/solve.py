@@ -270,15 +270,21 @@ def solve_batch(
     return torch.stack([solve_point(sys, t, config) for t in ts])
 
 
-def solve_sweep(
-    sys: AffineSystem, config: MorfemConfig = DEFAULT_CONFIG
-) -> torch.Tensor:
+def solve_sweep(sys, config: MorfemConfig = DEFAULT_CONFIG) -> torch.Tensor:
     """Full-order sweep over the whole domain — the no-MOR baseline.
 
-    Returns x [I, N, M]. Real systems with a float32 factor on a CUDA
-    device (or any real system under ``factorization="panel"``) run the
-    chunked panel-LU sweep; the rest solve point by point.
+    Returns x [I, N, M]. Of an `AffineSystem`: real systems with a float32
+    factor on a CUDA device (or any real system under
+    ``factorization="panel"``) run the chunked panel-LU sweep; the rest
+    solve point by point. A prepared sparse pencil (`mor/api.py::
+    MatfreeSystem`) runs the banded sweep (`solve_sweep_banded`), and x
+    comes back in the caller's row order.
     """
+    if not isinstance(sys, AffineSystem):
+        from morfem_tpu_torch.ops.block_tridiag import solve_sweep_banded
+
+        sys.check_knobs(config)
+        return solve_sweep_banded(sys, config)
     if use_panel_factorization(sys.b.dtype, config, sys.device):
         from morfem_tpu_torch.ops.panel_lu import solve_sweep_panel
 
