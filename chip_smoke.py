@@ -25,6 +25,15 @@ Phases, each printing one progress line with its seconds and numbers:
                refinement iterations per chunk), f64 spot checks of
                full-order solutions, and each kernel's launch count over that
                run;
+  4b. banded — the banded full-order sweep's Schur-complement inverses
+               on the 10× tiled waveguide (N=34,110, blocks of 3,456, one
+               chunk of 8 points): K2 at the substitutions' shapes and
+               strided views against its plain versions; both routes (8
+               `inv_ex` calls; the panel LU's K1-K3, K7 and K2 together)
+               timed at G = 1, 2, 4, 8; S⁻¹ against `inv_ex`'s and the
+               f64 inverse, with each panel's residual; the chunk's sweep
+               with its launches and `batched_inverses` counted, its GSM
+               against the sweep of one point a chunk;
   5. entry   — the flagship forward step (`morfem_tpu_torch/entry.py`, the
                counterpart of `__graft_entry__.entry`): seed solves,
                thin SVD, projection, reduced sweep, GSM, captured as CUDA
@@ -133,7 +142,8 @@ import time
 import warnings
 
 # seconds each phase may take before the watchdog ends the run
-BUDGET = {"device": 60, "build": 600, "kernels": 300, "slice": 900,
+BUDGET = {"device": 60, "build": 600, "kernels": 300, "banded": 600,
+          "slice": 900,
           "entry": 300, "panel": 300, "reduced_lu": 300, "serve": 900,
           "matfree": 600, "general": 600, "krylov": 600, "complex": 900,
           "parallel": 600}
@@ -292,7 +302,6 @@ def kernel_phase(dev):
         gather_rows, gather_rows_plain, mm_words, mm_words_plain,
         panel_factor, panel_factor_plain,
     )
-    from morfem_tpu_torch.ops.kernels.fused_mm import mm_words_split_plain
     from morfem_tpu_torch.ops.kernels.panel_factor import (
         max_active_clusters, panel_factor_plan, placeable_on,
     )
@@ -372,10 +381,9 @@ def kernel_phase(dev):
 
     # K2: trailing updates of the block-pivot factor (S = A22 - L21·U12),
     # the U12 = L11⁻¹·A12 product, and the full-pivot trailing update with
-    # the transposed coefficient view. Held against the FP32 product
-    # (mm_words_plain) and the six-product word split (the kernel's own
-    # arithmetic): exact word products summed in f32 in another order,
-    # tolerance 1e-5 of the largest |output|. The bound is the least time
+    # the transposed coefficient view, each held by `check_k2` (against
+    # the FP32 product and the six-product word split: exact word products
+    # summed in f32 in another order). The bound is the least time
     # of an f32-true product on this card: six bf16 tensor-core passes
     # (fp32_bound_ms: the same work at the FP32 CUDA-core rate).
     cases = (
@@ -392,26 +400,7 @@ def kernel_phase(dev):
             c = torch.randn((g, m, k), generator=gen, device=dev)
         r = torch.randn((g, k, n), generator=gen, device=dev)
         t = torch.randn((g, m, n), generator=gen, device=dev) if with_t else None
-        out_k = mm_words(c, r, t, sign=sign)
-        out_p = mm_words_plain(c, r, t, sign=sign)
-        out_s = mm_words_split_plain(c, r, t, sign=sign)
-        err = float((out_k - out_p).abs().max())
-        err_split = float((out_k - out_s).abs().max())
-        top = float(out_p.abs().max())
-        check(err <= 1e-5 * top, f"K2 error {err} at {(g, m, k, n)}")
-        check(err_split <= 1e-5 * top,
-              f"K2 error vs the word split {err_split} at {(g, m, k, n)}")
-        # f32-true: no farther from the exact (f64) result than the FP32
-        # product (a drifting tensor-core accumulation fails this)
-        exact = sign * (c.double() @ r.double())
-        if t is not None:
-            exact = exact + t.double()
-        mean_k = float((out_k.double() - exact).abs().mean())
-        mean_p = float((out_p.double() - exact).abs().mean())
-        check(mean_k <= mean_p,
-              f"K2 mean error vs f64 {mean_k} > FP32's {mean_p} at "
-              f"{(g, m, k, n)}")
-        del exact
+        _, err, err_split, mean_k, mean_p = check_k2(c, r, t, sign)
         ms = cuda_ms(lambda: mm_words(c, r, t, sign=sign))
         plain_ms = cuda_ms(lambda: mm_words_plain(c, r, t, sign=sign))
         if t is not None:
@@ -479,6 +468,37 @@ def kernel_phase(dev):
             rec[name]["variants"] = [[r["shape"], r["variant"]]
                                      for _, r in rows]
     return rec
+
+
+def check_k2(c, r, t, sign):
+    """K2 (`mm_words`) on c @ r (+ t) held against the FP32 product
+    (`mm_words_plain`) and the six-product word split (the kernel's own
+    arithmetic) to 1e-5 of the largest |output|, and, f32-true, no
+    farther from the exact (f64) result on average than the FP32 product
+    (a drifting tensor-core accumulation fails this). Returns (K2's
+    output, its error against the FP32 product and against the word
+    split, its and the FP32 product's mean error against f64)."""
+    from morfem_tpu_torch.ops.kernels import mm_words, mm_words_plain
+    from morfem_tpu_torch.ops.kernels.fused_mm import mm_words_split_plain
+
+    what = f"{list(c.shape)}@{list(r.shape)} t={t is not None}"
+    out_k = mm_words(c, r, t, sign=sign)
+    out_p = mm_words_plain(c, r, t, sign=sign)
+    out_s = mm_words_split_plain(c, r, t, sign=sign)
+    err = float((out_k - out_p).abs().max())
+    err_split = float((out_k - out_s).abs().max())
+    top = float(out_p.abs().max())
+    check(err <= 1e-5 * top, f"K2 error {err} at {what}")
+    check(err_split <= 1e-5 * top,
+          f"K2 error vs the word split {err_split} at {what}")
+    exact = sign * (c.double() @ r.double())
+    if t is not None:
+        exact = exact + t.double()
+    mean_k = float((out_k.double() - exact).abs().mean())
+    mean_p = float((out_p.double() - exact).abs().mean())
+    check(mean_k <= mean_p,
+          f"K2 mean error vs f64 {mean_k} > FP32's {mean_p} at {what}")
+    return out_k, err, err_split, mean_k, mean_p
 
 
 def _kernels_k7(dev, gen, keep):
@@ -956,6 +976,195 @@ def krylov_pencil(n, scattered=False, half=6, seed=0):
             shape=(n, n))
         a0 = (a0 + far + far.T).tocsr()
     return a0, sp.csr_matrix((n, n)), a2
+
+
+def tiled_waveguide_chunk(dev, points=8, n=3411, band=3456):
+    """The 10× tiled waveguide (N=34,110 from the bundled N=3411 data; blocks
+    of ``band``) prepared for the banded full-order sweep at the first
+    ``points`` of the ``waveguide_34110.full_sparse`` cell's 100 points of
+    3–5 GHz: one chunk of that sweep."""
+    import numpy as np
+
+    from morfem_tpu_torch import MorfemConfig
+    from morfem_tpu_torch.apps import waveguide as wg
+
+    data = wg.load_waveguide_data(n_fallback=n)
+    return wg.tiled_waveguide_system(
+        np.linspace(3e9, 5e9, 100)[:points], data, 10,
+        MorfemConfig(band_max_half=band), device=dev)
+
+
+def schur_complements(sys_, steps):
+    """{step: S [G, b, b]}: the Schur complements that the block-Thomas
+    factor of the G points of ``sys_`` inverts at the block ``steps``,
+    recomputed from that factor's h as the factor forms them."""
+    from morfem_tpu_torch.ops import block_tridiag as bt
+
+    c, _ = sys_.coefficients(sys_.domain)
+    l, d, u = sys_.op.blocks(c.to(sys_.b.dtype),
+                             bt._block_size(sys_.op.half))
+    fac = bt.block_tridiag_factor(l, d, u, sys_.op.n)
+    _, cols = bt._coupling_sets(l, u)
+    return {i: bt._schur_complement(l, d, fac.h, cols, i).clone()
+            for i in steps}
+
+
+def inverse_quality(s, xs, panel=128):
+    """For each x of ``xs``, inverses of the matrices of s [G, b, b], a dict
+    of [G] float64 tensors, all against the float64 inverse (`inv_ex` of
+    each matrix in float64): ``err`` ‖X − S⁻¹‖_F/‖S⁻¹‖_F; ``kappa``
+    κ_F(S) = ‖S‖_F·‖S⁻¹‖_F; ``right`` the largest residual of a column
+    panel, ‖(S·X − I)[:, J]‖_F/√P, and ``left`` of a row panel,
+    ‖(X·S − I)[J, :]‖_F/√P, over the panels J of ``panel`` columns or
+    rows. A panel of X left wrong reads about 1 in one of them."""
+    import torch
+
+    s64 = s.double()
+    g, b, _ = s.shape
+    ref = torch.stack([torch.linalg.inv_ex(m)[0] for m in s64])
+    eye = torch.eye(b, dtype=torch.float64, device=s.device)
+
+    def norm(a, dims=(-2, -1)):
+        return torch.linalg.norm(a, dim=dims)
+
+    kappa = norm(s64) * norm(ref)
+    out = []
+    for x in xs:
+        x64 = x.double()
+        right = (s64 @ x64 - eye).reshape(g, b, b // panel, panel)
+        left = (x64 @ s64 - eye).reshape(g, b // panel, panel, b)
+        out.append({
+            "err": norm(x64 - ref) / norm(ref), "kappa": kappa,
+            "right": (norm(right, (1, 3)) / panel ** 0.5).amax(dim=1),
+            "left": (norm(left, (2, 3)) / panel ** 0.5).amax(dim=1),
+        })
+        del right, left
+    return out
+
+
+def _banded_k2(dev, gen, g=8, b=3456, p=128):
+    """K2 at the shapes and views of `_invert_points`' substitutions: the
+    top-level update of each (K up to b/2, operands strided sub-blocks of
+    one [G, b, b] LU and of x, the addend a view of x written back) and a
+    leaf (a K7 block of [G, nb, P, P] against P rows of x), each timed
+    beside the FP32 product."""
+    import torch
+
+    from morfem_tpu_torch.ops.kernels import mm_words, mm_words_plain
+
+    nb = b // p
+    m = nb // 2 * p
+    lug = torch.randn((g, b, b), generator=gen, device=dev)
+    inv = torch.randn((g, nb, p, p), generator=gen, device=dev)
+    x = torch.randn((g, b, b), generator=gen, device=dev)
+    for label, c, r, t in (
+            ("lower update", lug[:, m:, :m], x[:, :m, :m], x[:, m:, :m]),
+            ("upper update", lug[:, :m, m:], x[:, m:, :], x[:, :m, :]),
+            ("leaf", inv[:, nb // 2], x[:, m:m + p, :m + p], None)):
+        sign = 1 if t is None else -1
+        out, err, err_split, mean_k, mean_p = check_k2(c, r, t, sign)
+        ms = cuda_ms(lambda: mm_words(c, r, t, sign=sign), 5)
+        plain_ms = cuda_ms(lambda: mm_words_plain(c, r, t, sign=sign), 5)
+        if t is not None:
+            t.copy_(out)
+        print(f"  K2 {label} {list(c.shape)}@{list(r.shape)} strides "
+              f"{list(c.stride())}, {list(r.stride())} t={t is not None}: "
+              f"max_abs_err={err:.3e} err_vs_word_split={err_split:.3e} "
+              f"mean_err_vs_f64={mean_k:.3e} (FP32 product: {mean_p:.3e}) "
+              f"kernel_ms={ms:.4f} fp32_ms={plain_ms:.4f}", flush=True)
+    del lug, inv, x
+
+
+def banded_phase(dev, points=8, steps=(0, 5), n=3411, band=3456):
+    """The banded full-order sweep's batched Schur-complement inverses
+    (`ops/block_tridiag.py::_invert_points`) on the cell's pencil: K2 at
+    the substitutions' shapes (`_banded_k2`); both routes timed at G = 1,
+    2, 4, 8 on step 0's [G, 3,456, 3,456] complements (the sweep that
+    fixes ``POINTS_TO_BATCH``) and the LU's share at G = 8; each step's
+    S⁻¹ against `inv_ex`'s and the float64 inverse (`inverse_quality`:
+    error within 0.02·κ_F·ε, each panel's residual within 4× `inv_ex`'s);
+    then one chunk's sweep (`solve_sweep_banded`) with its launches and
+    ``batched_inverses`` counted, its GSM against the sweep of one point a
+    chunk (`inv_ex`). Returns the chunk's launch counts."""
+    import torch
+
+    from morfem_tpu_torch import MorfemConfig
+    from morfem_tpu_torch.apps.waveguide import full_order_gsm
+    from morfem_tpu_torch.ops import block_tridiag as bt
+    from morfem_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from morfem_tpu_torch.ops.panel_lu import panel_lu_factor
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _banded_k2(dev, gen, b=band)
+    sys_ = tiled_waveguide_chunk(dev, points, n, band)
+    kept = schur_complements(sys_, steps)
+    s8 = kept[steps[0]]
+    wins = []
+    for g in (1, 2, 4, 8):
+        s = s8[:g].contiguous()
+        each_ms = cuda_ms(lambda: bt._inverse_each(s), 5)
+        together_ms = cuda_ms(lambda: bt._invert_points(s), 5)
+        if together_ms < each_ms:
+            wins.append(g)
+        print(f"  invert [{g},{s.shape[1]},{s.shape[2]}]: inv_ex each "
+              f"{each_ms:.3f} ms, together {together_ms:.3f} ms", flush=True)
+    lu_ms = cuda_ms(lambda: panel_lu_factor(s8), 5)
+    print(f"  together at G=8: panel_lu_factor {lu_ms:.3f} ms; together "
+          f"from G={wins[0] if wins else None} on this card "
+          f"(POINTS_TO_BATCH={bt.POINTS_TO_BATCH})", flush=True)
+    eps = torch.finfo(torch.float32).eps
+    for step, s in kept.items():
+        got, each = inverse_quality(
+            s, (bt._invert_points(s), bt._inverse_each(s)))
+        print(f"  S⁻¹ of step {step}: kappa_F "
+              f"{[f'{v:.3e}' for v in got['kappa'].tolist()]}", flush=True)
+        for label, q in (("together", got), ("inv_ex", each)):
+            print(f"    {label}: " + " ".join(
+                f"{k}={[f'{v:.2e}' for v in q[k].tolist()]}"
+                for k in ("err", "right", "left")), flush=True)
+        check(bool((got["err"] <= 0.02 * got["kappa"] * eps).all()),
+              f"S⁻¹ of step {step} off the f64 inverse past 0.02·κ·ε")
+        for side in ("right", "left"):
+            check(bool((got[side] <= 4 * each[side]).all()),
+                  f"S⁻¹ of step {step}: a panel's {side} residual past 4× "
+                  f"inv_ex's")
+    del kept, s8
+    cfg = MorfemConfig(band_max_half=band)
+    bt.reset_factor_counters()
+    bt.reset_banded_sweep_counters()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gsm = full_order_gsm(sys_, cfg)
+    torch.cuda.synchronize()
+    t_sweep = time.perf_counter() - t0
+    counts = launch_counts()
+    inverses = list(bt.block_tridiag_factor.batched_inverses)
+    escalations = bt.solve_sweep_banded.escalations
+    passes = list(bt.solve_sweep_banded.chunk_iterations)
+    nb = -(-sys_.op.n // band)  # block steps a factor
+    t0 = time.perf_counter()
+    gsm_each = full_order_gsm(sys_, cfg.replace(solve_chunk=1))
+    torch.cuda.synchronize()
+    t_each = time.perf_counter() - t0
+    diff = float((gsm - gsm_each).abs().max())
+    print(f"  sweep of {points} points, N={sys_.op.n}: {t_sweep:.3f} s "
+          f"(one point a chunk: {t_each:.3f} s), passes {passes}, "
+          f"escalations {escalations}, batched_inverses {inverses}, "
+          f"max|GSM - GSM one point a chunk| {diff:.3e}, kernels "
+          f"{json.dumps(counts)}", flush=True)
+    check(inverses == [points] * nb,
+          f"batched_inverses {inverses}, not {nb} steps of {points}")
+    check(bt.block_tridiag_factor.batched_inverses == inverses,
+          "a chunk of one point inverted its complements together")
+    check(escalations == 0, f"{escalations} points escalated")
+    check(counts["panel_factor"] == nb * band // 128
+          and counts["tri_inverse"] == nb
+          and counts["gather_rows"] > 0 and counts["mm_words"] > 0,
+          f"the chunk's launches {counts}")
+    # both at 10·ε·‖b‖ in f64; the cell holds the GSM to 1e-7
+    check(diff <= 1e-9, f"the two sweeps' GSMs differ by {diff}")
+    return counts
 
 
 def slice_phase(dev, n_expected=3411, points=100):
@@ -2375,6 +2584,9 @@ def main() -> int:
         rec = kernel_phase(dev)
     with phase("slice"):
         counts, sys_, rm, gsm_full, x_full, t_full = slice_phase(dev)
+    with phase("banded"):
+        for kname, n in banded_phase(dev).items():
+            counts[kname] += n
     with phase("entry"):
         for kname, n in entry_phase(dev, sys_, gsm_full, smi).items():
             counts[kname] += n

@@ -20,6 +20,8 @@ this order, each with its usual checks:
               the A12 rows [8,384,3072]), per call and on the device alone
               (K2's split passes and GEMM apart, from a torch.profiler
               trace);
+  banded      the banded sweep's Schur-complement inverses (alone: it
+              prepares its own N=34,110 pencil);
   slice       the waveguide end to end (the later phases need it; it runs
               whenever one of them is named);
   entry       the flagship step, where the checkout has it;
@@ -41,8 +43,8 @@ import os
 import subprocess
 import sys
 
-PHASES = ("kernels", "k1", "slice", "entry", "panel", "reduced_lu", "serve",
-          "matfree", "krylov", "parallel")
+PHASES = ("kernels", "k1", "banded", "slice", "entry", "panel", "reduced_lu",
+          "serve", "matfree", "krylov", "parallel")
 DEFAULT = "slice,entry,krylov,parallel"
 K1_SHAPES = (((1, 128, 3456), True), ((6, 128, 3456), True),
              ((8, 128, 3456), True), ((16, 128, 3456), True),
@@ -148,6 +150,7 @@ def run_one(root: str, phases) -> None:
 
     cs.BUDGET.setdefault("k1", 300)
     cs.BUDGET.setdefault("panel", 300)  # before the phase was added
+    cs.BUDGET.setdefault("banded", 600)
     dev = torch.device("cuda")
     smi = _own_chip_smoke().nvidia_smi_line()
     print(f"  {smi}", flush=True)
@@ -159,7 +162,10 @@ def run_one(root: str, phases) -> None:
     if "k1" in phases:
         with cs.phase("k1"):
             k1_times(cs, dev, smi)
-    if not set(phases) & set(PHASES[2:]):
+    if "banded" in phases:
+        with cs.phase("banded"):
+            runner("banded")(dev)
+    if not set(phases) & set(PHASES[3:]):
         return
     with cs.phase("slice"):
         _, sys_, rm, gsm_full, x_full, t_full = cs.slice_phase(dev)

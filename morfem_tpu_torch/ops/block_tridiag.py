@@ -27,7 +27,9 @@ with the same f64 refinement around it.
 
 `solve_sweep_banded` is the full-order sweep of a prepared sparse pencil:
 the block-Thomas factor and apply take a leading point axis, so a chunk of
-points is factored step by step together, and refined together.
+points is factored step by step together, and refined together. There each
+step's Schur complements are inverted together by the panel LU's kernels
+(`_invert_points`: K1–K3 and K7, the substitutions on K2).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import torch
 from morfem_tpu_torch.config import DEFAULT_CONFIG, MorfemConfig
 from morfem_tpu_torch.ops.banded_matvec import combine_addends
 from morfem_tpu_torch.ops.complex_split import real_embedding
+from morfem_tpu_torch.ops.kernels import mm_words
+from morfem_tpu_torch.ops.panel_lu import panel_lu_factor
 from morfem_tpu_torch.ops.refine import host_norm, refine
 from morfem_tpu_torch.utils.timing import host_read, span
 
@@ -138,6 +142,17 @@ def _product_over(a: torch.Tensor, b: torch.Tensor,
     return a.index_select(-1, idx) @ b.index_select(-2, idx)
 
 
+def _schur_complement(l32: torch.Tensor, d32: torch.Tensor, h: torch.Tensor,
+                      cols, i: int) -> torch.Tensor:
+    """S_i = D_i − L_i·h_{i−1} of the block-Thomas factor (S_0 = D_0), the
+    product over L_i's nonzero columns ``cols[i]`` only."""
+    d_i = d32.select(-3, i)
+    if i == 0 or not cols[i].numel():
+        return d_i
+    return d_i - _product_over(l32.select(-3, i), h.select(-3, i - 1),
+                               cols[i])
+
+
 def _inverse_each(s: torch.Tensor) -> torch.Tensor:
     """`torch.linalg.inv_ex` of each matrix of [..., b, b] alone: a
     batched inverse of large blocks goes to another library (MAGMA on the
@@ -149,14 +164,80 @@ def _inverse_each(s: torch.Tensor) -> torch.Tensor:
                         for m in s.reshape(-1, b, b)]).reshape(s.shape)
 
 
+# Points a block step must hold for its Schur complements to be inverted
+# together (`_invert_points`) instead of one by one (`_inverse_each`): the
+# least G at which the batched route was the faster on an H100 at
+# b = 3,456 (G = 1: 23.4 ms against 15.2; G = 2: 26.6 against 30.1;
+# PERF.md §6).
+POINTS_TO_BATCH = 2
+
+
+def _substitute(x: torch.Tensor, lu: torch.Tensor, inv: torch.Tensor,
+                a: int, b: int, lower: bool) -> None:
+    """x[a:b] ← T⁻¹·x[a:b] in place, over the panels a..b of P rows.
+
+    T is the unit-lower (``lower``) or the upper triangle of the packed
+    LU ``lu`` [G, N, N], ``inv`` [G, nb, P, P] its inverted diagonal
+    blocks (K7). The panels are halved recursively, so that the update of
+    one half by the other is one large f32-true product (K2). The lower
+    solve serves L⁻¹ only: x starts as the identity there, so its rows
+    below panel b are zero right of column b·P and no product reads or
+    writes those columns.
+    """
+    p = inv.shape[-1]
+    if b - a == 1:
+        rows = x[:, a * p:b * p, :b * p if lower else x.shape[-1]]
+        rows.copy_(mm_words(inv[:, a], rows))
+        return
+    m = (a + b) // 2
+    first, second = ((a, m), (m, b)) if lower else ((m, b), (a, m))
+    _substitute(x, lu, inv, *first, lower)
+    src = slice(first[0] * p, first[1] * p)
+    dst = slice(second[0] * p, second[1] * p)
+    w = m * p if lower else x.shape[-1]
+    t = x[:, dst, :w]
+    t.copy_(mm_words(lu[:, dst, src], x[:, src, :w], t=t, sign=-1))
+    _substitute(x, lu, inv, *second, lower)
+
+
+def _invert_points(s: torch.Tensor) -> torch.Tensor:
+    """S⁻¹ of each matrix of s [G, b, b], all G together, by the panel LU's
+    kernels: no library factorization or inverse.
+
+    `panel_lu_factor` (partial pivoting over all rows, K1–K3, rows
+    equilibrated to unit max, K7's diagonal-block inverses) gives
+    P·E·S = L·U, with E the equilibration and P the pivot order. Then
+    X = U⁻¹·L⁻¹ by two block substitutions against the identity
+    (`_substitute`, f32-true on K2), and S⁻¹ = X·P·E: column ``perm[k]``
+    of S⁻¹ is column k of X scaled by row ``perm[k]``'s equilibration.
+    An exactly singular S gives non-finite entries for its point alone
+    (K7 takes the reciprocal of its zero pivot; K1 divides by it).
+    """
+    f = panel_lu_factor(s)
+    x = torch.zeros_like(f.lug)
+    x.diagonal(dim1=1, dim2=2).fill_(1.0)
+    nb = f.linv.shape[1]
+    _substitute(x, f.lug, f.linv, 0, nb, lower=True)
+    _substitute(x, f.lug, f.uinv, 0, nb, lower=False)
+    g, n = s.shape[0], f.n
+    cols = torch.argsort(f.perm, dim=1)[:, :n]
+    return (torch.gather(x[:, :n], 2, cols[:, None, :].expand(g, n, n))
+            * f.dinv[:, None, :n])
+
+
 def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
     """Block-Thomas factorization in f32 (one dependent step per block).
 
     The blocks are [nb, b, b], or [G, nb, b, b] for G points factored
     together: each step then runs over the G points at once (the coupling
-    products batched, each Schur complement inverted alone,
-    `_inverse_each`), and the coupling sets are the union of the points'
-    (read once for all of them).
+    products batched), and the coupling sets are the union of the points'
+    (read once for all of them). A step of ``POINTS_TO_BATCH`` points or
+    more inverts its G Schur complements together (`_invert_points`, the
+    panel LU's kernels) and appends G to
+    ``block_tridiag_factor.batched_inverses``; fewer points, and blocks
+    without a point axis, invert each complement alone (`_inverse_each`,
+    `torch.linalg.inv_ex`). Under a trace-mode `PhaseTimer` each step's
+    inversion is a ``banded.invert`` span.
 
     Each coupling product runs over the coupling blocks' nonzero rows and
     columns only: with R_i the nonzero rows of U_i and C_i the nonzero
@@ -174,22 +255,27 @@ def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
 
     An exactly singular Schur complement does not raise: its inverse comes
     back non-finite (`torch.linalg.inv_ex`, as the reference's
-    `jnp.linalg.inv`), so the refinement's residual turns NaN and the
-    callers escalate to the shifted solve. `inv_ex` also skips the host
-    check of each block's `info` that `inv` makes on the card.
+    `jnp.linalg.inv`; on the batched route for its point alone), so the
+    refinement's residual turns NaN and the callers escalate to the
+    shifted solve. Neither route reads a block's `info` on the host, as
+    `inv` does on the card.
     """
     f32 = torch.float32
     l32, d32, u32 = l.to(f32), d.to(f32), u.to(f32)
     nb, b = d32.shape[-3], d32.shape[-1]
+    batched = d32.ndim == 4 and d32.shape[0] >= POINTS_TO_BATCH
     rows, cols = _coupling_sets(l32, u32)
     g = torch.empty_like(d32)
     h = torch.empty_like(d32)
     for i in range(nb):
-        c, r = cols[i], rows[i]
-        d_i, g_i, h_i = d32.select(-3, i), g.select(-3, i), h.select(-3, i)
-        s = (d_i if i == 0 or not c.numel() else
-             d_i - _product_over(l32.select(-3, i), h.select(-3, i - 1), c))
-        g_i.copy_(_inverse_each(s))
+        r, g_i, h_i = rows[i], g.select(-3, i), h.select(-3, i)
+        s = _schur_complement(l32, d32, h, cols, i)
+        with span("banded.invert"):
+            if batched:
+                g_i.copy_(_invert_points(s))
+                block_tridiag_factor.batched_inverses.append(s.shape[0])
+            else:
+                g_i.copy_(_inverse_each(s))
         if r.numel():
             h_i.copy_(_product_over(g_i, u32.select(-3, i), r))
         else:
@@ -202,11 +288,14 @@ def block_tridiag_factor(l, d, u, n: int) -> BlockTridiagFactors:
 
 
 block_tridiag_factor.coupling_share = []
+block_tridiag_factor.batched_inverses = []
 
 
 def reset_factor_counters() -> None:
-    """Empty the block-Thomas factor's list of coupling shares."""
+    """Empty the block-Thomas factor's lists of coupling shares and of
+    Schur complements inverted together."""
     block_tridiag_factor.coupling_share = []
+    block_tridiag_factor.batched_inverses = []
 
 
 def block_tridiag_apply(factors: BlockTridiagFactors,

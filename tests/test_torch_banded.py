@@ -301,6 +301,132 @@ def test_singular_schur_complement_factors_to_non_finite(coupled):
     assert not bool(torch.isfinite(x).all())
 
 
+@pytest.fixture(scope="module")
+def tiled_blocks():
+    """f32 blocks [3, nb, 256, 256] and N of the synthesized waveguide
+    (N=250) tiled 10×, at 3 points of 3–5 GHz: blocks of 256 straddle the
+    tiles, so the coupling blocks are nonzero."""
+    from morfem_tpu_torch import MorfemConfig
+    from morfem_tpu_torch.apps import waveguide as wg
+
+    c, t, wp = wg.synthesize_waveguide(250)
+    wp = wg.calibrate_port_amplitude(c, t, wp)
+    data = wg.WaveguideData(c, t, wp, wg.KTE_DEFAULT, True)
+    sys_ = wg.tiled_waveguide_system(
+        np.linspace(3e9, 5e9, 13)[[0, 5, 12]], data, 10,
+        MorfemConfig(band_max_half=256), device=CPU)
+    coef, _ = sys_.coefficients(sys_.domain)
+    return sys_.op.blocks(coef.to(sys_.b.dtype), 256), sys_.op.n
+
+
+def _frobenius_rel(a, b):
+    """‖a − b‖_F / ‖b‖_F of each matrix of [..., b, b], in float64."""
+    a, b = a.double(), b.double()
+    return (torch.linalg.norm(a - b, dim=(-2, -1))
+            / torch.linalg.norm(b, dim=(-2, -1)))
+
+
+def test_the_batched_route_matches_a_factor_of_inv_ex_inverses(
+        monkeypatch, tiled_blocks):
+    """A step of 3 points inverts its Schur complements together
+    (`_invert_points`: the panel LU, then two substitutions). Each S⁻¹,
+    against the float64 inverse (`chip_smoke.inverse_quality`), is off by
+    at most 0.02·κ_F(S)·ε relative to its norm (κ_F = ‖S‖_F·‖S⁻¹‖_F,
+    1.9e4–6.4e7 on these blocks; measured ≤ 0.0093·κ_F·ε), and each
+    128-wide column panel of S·X − I and row panel of X·S − I stays
+    within 4× `inv_ex`'s largest (measured ≤ 2.4×; a panel of X left
+    wrong reads about 1 there). Against the same factor with each
+    complement inverted by `inv_ex`: both are f32 inverses by
+    backward-stable LUs with other pivots and sums, each off the exact
+    S⁻¹ by c·κ_F·ε, so the routes' g differ by at most κ_F·ε/8, and the
+    products of g (h, the apply) with an f32-true rounding of their own
+    on top."""
+    import chip_smoke as cs
+
+    (l, d, u), n = tiled_blocks
+    assert d.shape[0] == 3 >= tbt.POINTS_TO_BATCH
+    tbt.reset_factor_counters()
+    fac = tbt.block_tridiag_factor(l, d, u, n)
+    nb = d.shape[1]
+    assert tbt.block_tridiag_factor.batched_inverses == [3] * nb
+    assert tbt.block_tridiag_factor.coupling_share[0] < 1.0
+    assert fac.h[:, :-1].abs().amax(dim=(-2, -1)).min() > 0  # coupled
+    _, cols = tbt._coupling_sets(l, u)
+    s = torch.stack([tbt._schur_complement(l, d, fac.h, cols, i)
+                     for i in range(nb)], dim=1)  # [3, nb, b, b]
+    eps = torch.finfo(torch.float32).eps
+    for i in range(nb):
+        got, each = cs.inverse_quality(
+            s[:, i], (fac.g[:, i], tbt._inverse_each(s[:, i])))
+        assert bool((got["err"] <= 0.02 * got["kappa"] * eps).all())
+        assert bool((got["right"] <= 4 * each["right"]).all())
+        assert bool((got["left"] <= 4 * each["left"]).all())
+    monkeypatch.setattr(tbt, "_invert_points", tbt._inverse_each)
+    ref = tbt.block_tridiag_factor(l, d, u, n)
+    kappa = (torch.linalg.norm(s.double(), dim=(-2, -1))
+             * torch.linalg.norm(ref.g.double(), dim=(-2, -1)))
+    limit = kappa * eps / 8
+    assert bool((_frobenius_rel(fac.g, ref.g) <= limit).all())
+    live = ref.h.abs().amax(dim=(-2, -1)) > 0  # h of the last block is 0
+    assert bool((_frobenius_rel(fac.h, ref.h)[live] <= limit[live]).all())
+    rhs = torch.from_numpy(
+        np.random.default_rng(9).standard_normal((3, n, 2)))
+    x = tbt.block_tridiag_apply(fac, rhs)
+    x_ref = tbt.block_tridiag_apply(ref, rhs)
+    assert bool((_frobenius_rel(x, x_ref) <= limit.amax(dim=1)).all())
+
+
+def _inv_ex_factor(l, d, u):
+    """The single-point block-Thomas factor written out with `inv_ex` and
+    the coupling sets: g and h."""
+    rows, cols = tbt._coupling_sets(l, u)
+    g, h = torch.empty_like(d), torch.empty_like(d)
+    for i in range(d.shape[-3]):
+        c, r = cols[i], rows[i]
+        s = d[i] if i == 0 or not c.numel() else (
+            d[i] - tbt._product_over(l[i], h[i - 1], c))
+        g[i] = torch.linalg.inv_ex(s)[0]
+        h[i] = tbt._product_over(g[i], u[i], r) if r.numel() else 0.0
+    return g, h
+
+
+@pytest.mark.parametrize("point_axis", [False, True])
+def test_blocks_of_one_point_keep_inv_ex(tiled_blocks, point_axis):
+    """[nb, b, b] blocks, and a point axis of one point (below
+    ``POINTS_TO_BATCH``), invert each Schur complement by `inv_ex`, bit
+    for bit, and invert nothing together."""
+    (l, d, u), n = tiled_blocks
+    one = [x[1:2] if point_axis else x[1] for x in (l, d, u)]
+    tbt.reset_factor_counters()
+    fac = tbt.block_tridiag_factor(*one, n)
+    assert tbt.block_tridiag_factor.batched_inverses == []
+    g, h = _inv_ex_factor(l[1], d[1], u[1])
+    shape = fac.g.shape
+    assert torch.equal(fac.g, g.reshape(shape))
+    assert torch.equal(fac.h, h.reshape(shape))
+
+
+@pytest.mark.parametrize("coupled", [False, True])
+def test_a_singular_schur_complement_poisons_its_point_alone(coupled):
+    """Three points a step, the middle one's first Schur complement
+    exactly singular: its g turns non-finite (from that block on, where
+    the blocks are coupled), the other points' stay finite."""
+    b = 256
+    d = torch.eye(b, dtype=torch.float64).repeat(3, 2, 1, 1)
+    d[1, 0, b - 1, b - 1] = 0.0
+    l, u = torch.zeros_like(d), torch.zeros_like(d)
+    if coupled:
+        u[:, 0, b - 1, 0] = l[:, 1, 0, b - 1] = 0.5
+    tbt.reset_factor_counters()
+    fac = tbt.block_tridiag_factor(l, d, u, 2 * b)
+    assert tbt.block_tridiag_factor.batched_inverses == [3, 3]
+    finite = torch.isfinite(fac.g).all(dim=(-2, -1))
+    assert finite.tolist() == [[True, True], [False, not coupled],
+                               [True, True]]
+    x = tbt.block_tridiag_apply(fac, torch.ones((3, 2 * b, 1)))
+    assert torch.isfinite(x).all(dim=(1, 2)).tolist() == [True, False, True]
+
+
 def test_banded_direct_solve_matches():
     a0, a1, a2 = _banded_pencil(n=300, half=6, seed=4, shift=2.0)
     op_t = tbm.BandedAffineOperator(a0, a1, a2, device=CPU)

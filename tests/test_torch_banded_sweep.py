@@ -240,13 +240,29 @@ def test_the_sweep_s_spans_and_counters(prepared, swept):
     assert children("full-order sweep") == {"banded.chunk"}
     assert children("banded.chunk") == {"banded.factor", "banded.refine",
                                         timing.HOST_SYNC}
-    assert children("banded.factor") == {timing.HOST_SYNC}
+    # one inversion a block step of each chunk's factor
+    assert cnt["banded.invert"] == 2 * 10
+    assert children("banded.factor") == {timing.HOST_SYNC, "banded.invert"}
     assert timing.HOST_SYNC in children("banded.refine")
     for name in ("banded.chunk", "banded.factor", "banded.refine"):
         assert timer.times[name] == pytest.approx(
             sum(s.device_s for s in timer.spans if s.name == name))
     # trace mode changes no number
     assert torch.equal(gsm, wg.full_order_gsm(prepared, CFG))
+
+
+def test_the_sweep_inverts_each_step_s_points_together(prepared):
+    """A chunk of 8 points (the 9th point's chunk padded to 8) inverts its
+    Schur complements 8 at a time at each of its 10 block steps; chunks of
+    one point invert each alone (`inv_ex`)."""
+    bt.reset_factor_counters()
+    pt.solve_sweep(prepared.with_domain(prepared.domain[:9]), CFG)
+    assert bt.block_tridiag_factor.batched_inverses == [8] * 20
+    bt.reset_factor_counters()
+    pt.solve_sweep(prepared.with_domain(prepared.domain[:2]),
+                   CFG.replace(solve_chunk=1))
+    assert bt.block_tridiag_factor.batched_inverses == []
+    assert len(bt.solve_sweep_banded.chunk_iterations) == 2 + 2
 
 
 def test_the_sweep_keeps_the_prepared_knobs_and_coefficients(prepared):

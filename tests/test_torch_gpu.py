@@ -1357,3 +1357,71 @@ def test_the_captured_sweep_holds_no_memory_between_calls(cuda):
         after.append(torch.cuda.memory_allocated(cuda))
     assert solve_sweep_panel.captures >= 4
     assert after[1] == after[2] == after[3], after
+
+
+def test_the_batched_schur_inverses_on_the_tiled_waveguide(cuda):
+    """The banded sweep's batched route (`_invert_points`: the panel LU's
+    K1–K3 and K7, the substitutions on K2) on the [8, 3,456, 3,456] Schur
+    complements that the first chunk of the tiled waveguide (N=34,110)
+    inverts at block steps 0 and 5 (`chip_smoke.schur_complements`).
+    Against the float64 inverse (`chip_smoke.inverse_quality`), each
+    point's S⁻¹ is off by at most 0.02·κ_F(S)·ε relative to its norm
+    (κ_F = ‖S‖_F·‖S⁻¹‖_F; measured ≤ 0.002·κ_F·ε here, 0.0093 on the CPU
+    test's blocks), as `inv_ex`'s is, so the two lie within 0.04·κ_F·ε of
+    each other; each 128-wide column panel of
+    S·X − I and row panel of X·S − I stays within 4× `inv_ex`'s largest
+    (measured ≤ 2.4×): one panel of X left wrong reads about 1 there."""
+    import chip_smoke as cs
+    from morfem_tpu_torch.ops import block_tridiag as bt
+
+    sys_ = cs.tiled_waveguide_chunk(cuda)
+    seen = cs.schur_complements(sys_, (0, 5))
+    del sys_
+    eps = torch.finfo(torch.float32).eps
+    reset_launch_counts()
+    for s in seen.values():
+        assert s.shape == (8, 3456, 3456)
+        x, x_ex = bt._invert_points(s), bt._inverse_each(s)
+        got, each = cs.inverse_quality(s, (x, x_ex))
+        limit = 0.02 * got["kappa"] * eps
+        apart = (torch.linalg.norm((x - x_ex).double(), dim=(1, 2))
+                 / torch.linalg.norm(x_ex.double(), dim=(1, 2)))
+        print("kappa_F", got["kappa"].tolist(), "batched, inv_ex",
+              {k: (got[k].tolist(), each[k].tolist())
+               for k in ("err", "right", "left")}, "apart", apart.tolist())
+        assert bool((got["err"] <= limit).all())
+        assert bool((each["err"] <= limit).all())
+        assert bool((apart <= 2 * limit).all())
+        assert bool((got["right"] <= 4 * each["right"]).all())
+        assert bool((got["left"] <= 4 * each["left"]).all())
+    counts = launch_counts()
+    assert counts["panel_factor"] == 2 * 27 and counts["tri_inverse"] == 2
+    assert counts["mm_words"] > 0
+
+
+def test_a_singular_schur_complement_poisons_its_point_alone_on_the_card(
+        cuda):
+    """Eight points a step at b = 3,456, the fourth point's first Schur
+    complement exactly singular (a zero column: K1 meets a zero pivot in
+    its eighth panel): through K1 and K7 that point's g turns non-finite
+    from that block on (the blocks are coupled), and its apply; the other
+    seven points' stay finite."""
+    from morfem_tpu_torch.ops import block_tridiag as bt
+
+    b = 3456
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    d = (torch.randn((8, 2, b, b), generator=gen, device=cuda)
+         + 4 * b ** 0.5 * torch.eye(b, device=cuda))
+    d[3, 0, :, 1000] = 0.0
+    l, u = torch.zeros_like(d), torch.zeros_like(d)
+    u[:, 0, b - 1, 0] = l[:, 1, 0, b - 1] = 0.5
+    reset_launch_counts()
+    bt.reset_factor_counters()
+    fac = bt.block_tridiag_factor(l, d, u, 2 * b)
+    assert bt.block_tridiag_factor.batched_inverses == [8, 8]
+    assert launch_counts()["panel_factor"] == 2 * 27
+    finite = torch.isfinite(fac.g).all(dim=(-2, -1)).tolist()
+    assert finite == [[p != 3] * 2 for p in range(8)]
+    x = bt.block_tridiag_apply(fac, torch.ones((8, 2 * b, 1), device=cuda))
+    assert torch.isfinite(x).all(dim=(1, 2)).tolist() == [
+        p != 3 for p in range(8)]
