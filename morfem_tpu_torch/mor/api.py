@@ -47,7 +47,7 @@ from morfem_tpu_torch.system import (
     _default_t_a2,
     _default_t_b,
 )
-from morfem_tpu_torch.utils.timing import PhaseTimer
+from morfem_tpu_torch.utils.timing import PhaseTimer, span
 
 
 def _warn_if_unconverged(result: GreedyResult) -> None:
@@ -163,6 +163,10 @@ class MatfreeSystem:
     t_extra: Tuple[Coefficient, ...] = ()
     symmetrize: bool = True  # the operator knobs it was made with
     band_max_half: int = 2048
+    # what `project` prepares on first use, shared by the re-gridded
+    # copies (``with_domain``)
+    _prepared: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @classmethod
     def create(cls, domain, a0, a1, a2, b, t_a0=_default_t_a0,
@@ -236,6 +240,57 @@ class MatfreeSystem:
         return _coefficients((self.t_a0, self.t_a1, self.t_a2,
                               *self.t_extra), self.t_b, t)
 
+    def project(self, q: torch.Tensor):
+        """Galerkin projection on the device → (P-tuple of r_p [K, K],
+        b_r [K, M]): r_p = Qᵀ·A_p·Q of each addend as the caller passed
+        it, b_r = Qᵀ·B, for q [N, K] in the operator's row order (what
+        `ops/sparse.py::sparse_project` gives on the permuted addends).
+
+        A_p·Q is the operator's `apply_addend` (the addend as the
+        operator holds it), plus, where the operator symmetrised a
+        non-symmetric addend, its antisymmetric part (A_p − A_pᵀ)/2
+        applied from CSR storage on the device. An all-zero addend gives
+        zeros. What this needs of the host (which addends are zero or
+        non-symmetric, and those parts) is prepared on the first call and
+        kept, so a call does no host work that scales with the nonzeros.
+        """
+        nonzero, skews = self._projection_storage()
+        qt = q.T
+        rs = []
+        for p in range(len(self.mats)):
+            if p not in nonzero:
+                rs.append(q.new_zeros((q.shape[1], q.shape[1])))
+                continue
+            aq = self.op.apply_addend(p, q)
+            if p in skews:
+                aq = aq + skews[p] @ q
+            rs.append(qt @ aq)
+        return tuple(rs), qt @ self.b
+
+    def _projection_storage(self):
+        """(the nonzero addends, {p: (A_p − A_pᵀ)/2 as CSR on the device,
+        in the operator's row order}), made on the first call: the
+        antisymmetric part only of an addend the operator symmetrised
+        that is not symmetric."""
+        got = self._prepared.get("projection")
+        if got is not None:
+            return got
+        from morfem_tpu_torch.ops.sparse import to_csr
+
+        nonzero = [p for p, m in enumerate(self.mats) if m.count_nonzero()]
+        skews, perm = {}, None
+        for p in nonzero if self.symmetrize else ():
+            m = self.mats[p].tocsr()
+            skew = ((m - m.T) * 0.5).tocsr()
+            skew.eliminate_zeros()
+            if skew.nnz:
+                if perm is None:
+                    perm = self.perm.cpu().numpy()
+                skews[p] = to_csr(skew[perm][:, perm], dtype=self.b.dtype,
+                                  device=self.device)
+        got = self._prepared["projection"] = (frozenset(nonzero), skews)
+        return got
+
     def check_knobs(self, config: MorfemConfig) -> None:
         """Raise unless `config`'s operator knobs are the ones the system
         was prepared with."""
@@ -252,12 +307,8 @@ def build_matfree(sys: MatfreeSystem, config: MorfemConfig = DEFAULT_CONFIG,
     """The matrix-free reduced model, trimmed, with its basis in the
     CALLER's row order, and the GreedyResult (None for the
     equally-distributed basis)."""
-    from morfem_tpu_torch.mor.equally import seed_indices
+    from morfem_tpu_torch.mor.equally import matfree_seed_basis
     from morfem_tpu_torch.mor.greedy_matfree import greedy_basis_matfree
-    from morfem_tpu_torch.ops.sparse import (
-        sparse_project,
-        sparse_snapshot_basis,
-    )
 
     sys.check_knobs(config)
     timer = timer or PhaseTimer(disabled=True)
@@ -267,14 +318,9 @@ def build_matfree(sys: MatfreeSystem, config: MorfemConfig = DEFAULT_CONFIG,
     gres = None
     with timer.phase("projection base"):
         if config.use_equally_distributed:
-            idx = seed_indices(int(domain.shape[0]), config)
-            q_op = sparse_snapshot_basis(
-                sys.mats, b_op, domain, idx,
-                (t_a0, t_a1, t_a2, *t_extra, t_b), config=config, op=op,
-            )
-            p = perm.cpu().numpy()
-            pmats = [m.tocsr()[p][:, p] for m in sys.mats]
-            (r0, r1, r2, *r_extra), b_r = sparse_project(pmats, b_op, q_op)
+            q_op = matfree_seed_basis(sys, config)
+            with span("equally.project"):
+                (r0, r1, r2, *r_extra), b_r = sys.project(q_op)
             rm = ReducedModel(
                 domain=domain, q=q_op, r0=r0, r1=r1, r2=r2, b_r=b_r,
                 ncols=q_op.shape[1], t_a0=t_a0, t_a1=t_a1, t_a2=t_a2,
